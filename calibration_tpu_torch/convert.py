@@ -1,0 +1,67 @@
+"""Carry inputs from the JAX package into the port and results back.
+
+Option dataclasses convert field by field from ``dataclasses.asdict``
+(fields the port does not read are dropped); arrays become tensors on a
+given device; results (tensors, NamedTuples, tuples) come back as numpy.
+Nothing here imports JAX: the JAX objects are read through the dataclass
+protocol and ``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.camera_matrix import CalibrationBounds
+from .optim.core import OptimizerType, OptimOptions
+from .optim.intrinsics import IntrinsicsOptimOptions
+
+
+def _known_fields(cls, values: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in values.items() if k in names}
+
+
+def _optim_options(values: dict) -> OptimOptions:
+    values = _known_fields(OptimOptions, values)
+    if "optimizer" in values:
+        values["optimizer"] = OptimizerType(getattr(values["optimizer"], "value", values["optimizer"]))
+    return OptimOptions(**values)
+
+
+def optim_options(opts) -> OptimOptions:
+    """The reference's ``OptimOptions`` -> the port's."""
+    return _optim_options(dataclasses.asdict(opts))
+
+
+def intrinsics_options(opts) -> IntrinsicsOptimOptions:
+    """The reference's ``IntrinsicsOptimOptions`` -> the port's."""
+    values = _known_fields(IntrinsicsOptimOptions, dataclasses.asdict(opts))
+    values["core"] = _optim_options(values["core"])
+    return IntrinsicsOptimOptions(**values)
+
+
+def calibration_bounds(bounds) -> CalibrationBounds | None:
+    """The reference's ``CalibrationBounds`` (or None) -> the port's."""
+    if bounds is None:
+        return None
+    return CalibrationBounds(**dataclasses.asdict(bounds))
+
+
+def to_tensor(a, device, dtype=torch.float64) -> torch.Tensor:
+    """An array (numpy, or anything ``numpy.asarray`` reads) -> a tensor
+    that owns a copy of it."""
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def to_numpy(tree):
+    """Tensors, NamedTuples, tuples and lists of them -> numpy."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(t) for t in tree)
+    return tree

@@ -1,0 +1,92 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` sources compile into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <lib> csrc/*.cu
+
+at first use, into ``build/calibration_tpu_torch/<hash of the sources>/``
+beside the package. A missing nvcc or a failed build raises. Every pointer
+and the CUDA stream cross as ``c_void_p``, every int as ``c_int``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR.parent / "build" / "calibration_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC",
+)
+_DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if _DEFAULT_NVCC.is_file():
+        return str(_DEFAULT_NVCC)
+    raise RuntimeError("nvcc not found on PATH or at /usr/local/cuda/bin: cannot build the CUDA kernels")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libcalibration_tpu_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; returns its
+    path. The library is written to a temporary name and renamed, so
+    concurrent builds never load a half-written file."""
+    lib = library_path()
+    if lib.is_file():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every launcher's
+    signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.projection_residuals_f32_launch.argtypes = [ptr] * 7 + [i32, i32, ptr]
+    lib.projection_residuals_f32_launch.restype = i32
+    return lib

@@ -1,0 +1,19 @@
+from . import blocks, core, intrinsics, lm, lm_schur, manifold
+from .core import OptimOptions, OptimResult, OptimizerType, TerminationType
+from .intrinsics import (
+    IntrinsicsOptimOptions,
+    intrinsics_covariance_device,
+    optimize_intrinsics_device,
+)
+from .lm import LMOutput, covariance_from_tangent
+from .lm_schur import SchurOutput, lm_core_schur, tangent_covariance
+from .manifold import ProductManifold, euclid, quat
+
+__all__ = [
+    "blocks", "core", "intrinsics", "lm", "lm_schur", "manifold",
+    "OptimOptions", "OptimResult", "OptimizerType", "TerminationType",
+    "IntrinsicsOptimOptions", "intrinsics_covariance_device", "optimize_intrinsics_device",
+    "LMOutput", "covariance_from_tangent",
+    "SchurOutput", "lm_core_schur", "tangent_covariance",
+    "ProductManifold", "euclid", "quat",
+]

@@ -1,0 +1,201 @@
+"""Joint intrinsics + per-view pose refinement for the pinhole model,
+batched over cameras (port of ``calibration_tpu/optim/intrinsics.py``:
+``optimize_intrinsics_device`` with the Schur solver at float64, and
+``intrinsics_covariance_device``).
+
+Parameter layout per camera: [intr(pc), quat_0..quat_V, t_0..t_V], the
+reference's IntrinsicBlocks order. One Huber block per view. fx, fy get a
+zero lower bound; skew is frozen unless ``optimize_skew``. The Jacobian is
+the analytic ``_view_residual_jac_pinhole``, which the reference's tests
+hold equal to its jacfwd.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.registry import PINHOLE
+from ..ops import se3
+from . import blocks, lm, lm_schur
+from .core import OptimOptions
+from .manifold import ProductManifold, euclid, quat
+
+
+@dataclasses.dataclass(frozen=True)
+class IntrinsicsOptimOptions:
+    """The solver fields of the reference's IntrinsicsOptimOptions (its
+    ``bounds`` and ``mixed_coarse_epsilon`` are not read by the float64
+    Schur solve and are not carried)."""
+
+    core: OptimOptions = dataclasses.field(default_factory=OptimOptions)
+    num_radial: int = 2
+    optimize_skew: bool = False
+    fixed_distortion_indices: tuple = ()
+    fixed_distortion_values: tuple = ()
+
+
+def make_manifold(pc: int, num_views: int) -> ProductManifold:
+    return ProductManifold([euclid(pc)] + [quat()] * num_views + [euclid(3)] * num_views)
+
+
+def reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask):
+    """(B, V, N, 2) masked pixel residuals. intr (B, pc); quats (B, V, 4);
+    trans (B, V, 3); obj_xy/img_uv (B, V, N, 2); mask (B, V, N)."""
+    rot = se3.quat_to_rotmat(quats)  # (B, V, 3, 3)
+    pts = torch.cat([obj_xy, torch.zeros_like(obj_xy[..., :1])], dim=-1)
+    pc3 = pts @ rot.transpose(-1, -2) + trans[..., None, :]
+    uv_hat = PINHOLE.project(intr[:, None, None, :], pc3)
+    return (uv_hat - img_uv) * mask[..., None]
+
+
+def _view_residual(intr, quats, trans, obj_xy, img_uv, mask):
+    """Per-view flattened residuals (B, V, 2N), rows interleaved (u, v)."""
+    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask)
+    return r.reshape(r.shape[:-2] + (-1,))
+
+
+def _skew_z0(pts):
+    """[p]_x for planar target points p = (px, py, 0): (..., 3, 3)."""
+    px, py = pts[..., 0], pts[..., 1]
+    z = torch.zeros_like(px)
+    return torch.stack(
+        [
+            torch.stack([z, z, py], -1),
+            torch.stack([z, z, -px], -1),
+            torch.stack([-py, px, z], -1),
+        ],
+        dim=-2,
+    )
+
+
+def _view_residual_jac_pinhole(intr, quats, trans, obj_xy, img_uv, mask):
+    """Analytic tangent Jacobian of ``_view_residual``: (B, V, 2N, 16),
+    columns [fx, fy, cx, cy, skew, k1, k2, k3, p1, p2, omega(3), dt(3)].
+
+    Rotation convention: right-multiplied quaternion retraction
+    q (x) exp_quat(omega) == R exp(omega^), so d p_c / d omega = -R [p]_x.
+    """
+    from ..models import pinhole
+
+    rot = se3.quat_to_rotmat(quats)
+    pts = torch.cat([obj_xy, torch.zeros_like(obj_xy[..., :1])], dim=-1)
+    pc = pts @ rot.transpose(-1, -2) + trans[..., None, :]  # (B, V, N, 3)
+    j_intr, h = pinhole.project_point_jacobians(intr[:, None, :], pc)
+    j_rot = h @ (-rot[..., None, :, :] @ _skew_z0(pts))  # (B, V, N, 2, 3)
+    jac = torch.cat([j_intr, j_rot, h], dim=-1) * mask[..., None, None]
+    return jac.reshape(jac.shape[:-3] + (-1, jac.shape[-1]))
+
+
+def _fixed_slot_list(opts: IntrinsicsOptimOptions):
+    """Packed distortion slots for opts.fixed_distortion_indices (indices
+    address [k1..k_nr, p1, p2]; validated)."""
+    nr = opts.num_radial
+    slots = []
+    for idx in opts.fixed_distortion_indices:
+        if idx < 0 or idx >= nr + 2:
+            raise ValueError("Fixed distortion index out of range")
+        slots.append(idx if idx < nr else 3 + (idx - nr))
+    return slots
+
+
+def _free_mask(opts, fixed_slots, pc, b, v, view_valid, device):
+    """(B, pc + 7V) ambient free mask: skew frozen unless optimize_skew,
+    fixed distortion slots frozen, invalid views' pose blocks frozen."""
+    free = np.ones((pc + 7 * v,), bool)
+    if not opts.optimize_skew:
+        free[PINHOLE.idx_skew] = False
+    for slot in fixed_slots:
+        free[PINHOLE.idx_dist0 + slot] = False
+    free = torch.as_tensor(free, device=device).expand(b, pc + 7 * v)
+    if view_valid is not None:
+        vv = view_valid.bool()
+        pose_free = torch.cat([vv.repeat_interleave(4, dim=-1), vv.repeat_interleave(3, dim=-1)], dim=-1)
+        free = free & torch.cat([torch.ones((b, pc), dtype=torch.bool, device=device), pose_free], dim=-1)
+    return free
+
+
+def _prepare_mask(obj_xy, mask, view_valid):
+    if mask is None:
+        mask = torch.ones(obj_xy.shape[:-1], dtype=obj_xy.dtype, device=obj_xy.device)
+    mask = mask.to(obj_xy.dtype)
+    if view_valid is not None:
+        mask = mask * view_valid.to(mask.dtype)[..., None]
+    return mask
+
+
+def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, opts=None, view_valid=None):
+    """Ambient covariance at a GIVEN solution by the Schur block inverse, so
+    a phased solve can defer covariance to one final pass.
+    Returns (cov (B, pc+7V, pc+7V), cov_ok (B,))."""
+    opts = opts or IntrinsicsOptimOptions()
+    b, v = obj_xy.shape[0], obj_xy.shape[1]
+    pc = PINHOLE.param_count
+    mask = _prepare_mask(obj_xy, mask, view_valid)
+    manifold = make_manifold(pc, v)
+    free = _free_mask(opts, _fixed_slot_list(opts), pc, b, v, view_valid, obj_xy.device)
+    quats, trans = blocks.poses_to_quat_tran(poses)
+    x = blocks.pack_intr_quats_trans(intr, quats, trans)
+    c_t, _ = lm_schur.tangent_covariance(
+        _view_residual, _view_residual_jac_pinhole, intr, quats, trans,
+        (obj_xy, img_uv, mask),
+        tan_free=manifold.ambient_to_tangent_mask(free).to(x.dtype),
+        huber_delta=opts.core.huber_delta,
+    )
+    return lm.covariance_from_tangent(c_t, x, manifold)
+
+
+def optimize_intrinsics_device(
+    obj_xy, img_uv, init_intr, init_poses, mask=None, opts=None, view_valid=None
+):
+    """Refine B cameras. obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc);
+    init_poses: (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V)
+    (invalid views get zero residuals and frozen pose blocks).
+
+    Returns (LMOutput, intr (B, pc), poses (B, V, 4, 4), view_errors (B, V),
+    cov (B, pc+7V, pc+7V), cov_ok (B,)).
+    """
+    opts = opts or IntrinsicsOptimOptions()
+    b, v = obj_xy.shape[0], obj_xy.shape[1]
+    pc = PINHOLE.param_count
+    dtype, device = obj_xy.dtype, obj_xy.device
+    mask = _prepare_mask(obj_xy, mask, view_valid)
+
+    # pin the requested Brown-Conrady coefficients (default 0)
+    fixed_slots = _fixed_slot_list(opts)
+    init_intr = init_intr.clone()
+    for i, slot in enumerate(fixed_slots):
+        vals = opts.fixed_distortion_values
+        init_intr[:, PINHOLE.idx_dist0 + slot] = vals[i] if i < len(vals) else 0.0
+    quats, trans = blocks.poses_to_quat_tran(init_poses)
+    manifold = make_manifold(pc, v)
+    free = _free_mask(opts, fixed_slots, pc, b, v, view_valid, device)
+    lower_g = torch.full((pc,), -torch.inf, dtype=dtype, device=device)
+    lower_g[PINHOLE.idx_fx] = 0.0
+    lower_g[PINHOLE.idx_fy] = 0.0
+
+    view_data = (obj_xy, img_uv, mask)
+    sout = lm_schur.lm_core_schur(
+        _view_residual, _view_residual_jac_pinhole, init_intr, quats, trans, view_data,
+        options=opts.core, g_free=free[:, :pc], view_valid=view_valid, lower_g=lower_g,
+    )
+    out = sout.as_lm_output(blocks.pack_intr_quats_trans)
+    n_amb = pc + 7 * v
+    if opts.core.compute_covariance:
+        c_t, _ = lm_schur.tangent_covariance(
+            _view_residual, _view_residual_jac_pinhole, sout.xg, sout.quats, sout.trans,
+            view_data, tan_free=manifold.ambient_to_tangent_mask(free).to(dtype),
+            huber_delta=opts.core.huber_delta,
+        )
+        cov, cov_ok = lm.covariance_from_tangent(c_t, out.x, manifold)
+    else:
+        cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=device)
+
+    poses = blocks.quat_tran_to_poses(sout.quats, sout.trans)
+    r = reproject_residuals(sout.xg, sout.quats, sout.trans, obj_xy, img_uv, mask)
+    cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    view_errors = torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
+    return out, sout.xg, poses, view_errors, cov, cov_ok

@@ -1,0 +1,347 @@
+"""Separable (Schur-complement) Levenberg-Marquardt for camera problems,
+batched over problems (port of ``calibration_tpu/optim/lm_schur.py``).
+
+Each view's residuals depend only on the shared global block (intrinsics)
+and that view's 6-dof pose, so the damped, Jacobi-scaled normal equations
+are solved by exact block elimination: batched 6x6 Cholesky inverses and
+one pg x pg Schur solve per problem.
+
+Same semantics as the reference: Huber IRLS per view (one loss block per
+view; the reference's ``blocks_per_view`` for rigs is not ported yet), Nielsen
+mu-updates, ftol/gtol/xtol = OptimOptions.epsilon, lower bounds on the global
+block by projection, frozen coordinates through free masks, and the
+linearization cached across rejected trials (one Jacobian per accepted
+step; a rejected trial re-solves the cached system with a larger mu).
+
+The reference vmaps a ``lax.while_loop`` over problems, which freezes every
+lane whose loop condition is false. Here the loops are Python loops over
+the whole batch with per-lane masks: a lane that is done keeps every field,
+its ``it`` and ``lin`` counters included, and inner trials advance only the
+lanes still active in the outer loop. The host reads one flag per trial to
+decide whether any lane is still active.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import linalg, se3
+from .core import OptimOptions
+from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput
+
+
+class SchurOutput(NamedTuple):
+    xg: torch.Tensor  # (B, pg)
+    quats: torch.Tensor  # (B, V, 4)
+    trans: torch.Tensor  # (B, V, 3)
+    cost: torch.Tensor
+    initial_cost: torch.Tensor
+    iterations: torch.Tensor  # trials (see LMOutput)
+    termination: torch.Tensor
+    success: torch.Tensor
+    linearizations: torch.Tensor
+
+    def as_lm_output(self, pack) -> LMOutput:
+        return LMOutput(
+            x=pack(self.xg, self.quats, self.trans),
+            cost=self.cost,
+            initial_cost=self.initial_cost,
+            iterations=self.iterations,
+            termination=self.termination,
+            success=self.success,
+            linearizations=self.linearizations,
+        )
+
+
+def _retract_views(quats, trans, dv):
+    """Right-multiply quaternion exp + additive translation."""
+    qn = se3.quat_mul(quats, se3.exp_quat(dv[..., :3]))
+    qn = qn / torch.linalg.norm(qn, dim=-1, keepdim=True)
+    return qn, trans + dv[..., 3:]
+
+
+def _huber(r, huber):
+    """Huber IRLS row weights (B, V, m) and robust cost (B,), one loss block
+    per view (r: (B, V, m))."""
+    s = torch.sum(r * r, dim=-1)  # (B, V)
+    if huber <= 0:
+        return torch.ones_like(r), 0.5 * torch.sum(s, dim=-1)
+    d2 = huber * huber
+    out = s > d2
+    sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
+    w = torch.where(out, huber / sqrt_s, torch.ones_like(s))
+    rho = torch.where(out, 2.0 * huber * sqrt_s - d2, s)
+    return w[..., None].expand(r.shape), 0.5 * torch.sum(rho, dim=-1)
+
+
+def tangent_covariance(
+    residual_fn: Callable,
+    jac_fn: Callable,
+    xg,
+    quats,
+    trans,
+    view_data,
+    *,
+    tan_free=None,
+    huber_delta: float = 0.0,
+):
+    """Tangent-space covariance (J^T J)^-1 at a solution by exact block
+    inversion of the separable structure, for a batch of problems.
+
+    With U the global gram, W_v the cross blocks, V_v the view grams and
+    S = U - sum_v W_v V_v^-1 W_v^T:
+      C_gg = S^-1,  C_gv = -S^-1 W_v V_v^-1,
+      C_vivj = delta_ij V_i^-1 + V_i^-1 W_i^T S^-1 W_j V_j^-1.
+
+    Huber rows are re-weighted by sqrt(rho'). ``tan_free`` is the
+    (B, pg + 6V) tangent free-mask in the manifold layout
+    [pg | 3V rot | 3V tra]; frozen dims get a unit diagonal before inversion
+    and zeroed rows/cols after. Returns (c_t (B, pg+6V, pg+6V), ok (B,)).
+    """
+    b, pg = xg.shape
+    v = quats.shape[-2]
+    dtype, device = xg.dtype, xg.device
+    r = residual_fn(xg, quats, trans, *view_data)  # (B, V, m)
+    jac = jac_fn(xg, quats, trans, *view_data)  # (B, V, m, pg + 6)
+    if huber_delta > 0:
+        w, _ = _huber(r, huber_delta)
+        jac = jac * torch.sqrt(w)[..., None]
+
+    if tan_free is not None:
+        tan_free = tan_free.to(dtype).expand(b, pg + 6 * v)
+        gmask = tan_free[:, :pg]
+        vmask6 = torch.cat(
+            [tan_free[:, pg : pg + 3 * v].reshape(b, v, 3), tan_free[:, pg + 3 * v :].reshape(b, v, 3)],
+            dim=-1,
+        )
+    else:
+        gmask = torch.ones((b, pg), dtype=dtype, device=device)
+        vmask6 = torch.ones((b, v, 6), dtype=dtype, device=device)
+
+    a_blk = jac[..., :pg] * gmask[:, None, None, :]
+    b_blk = jac[..., pg:] * vmask6[:, :, None, :]
+    u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk) + torch.diag_embed(1.0 - gmask)
+    wv = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk)  # (B, V, pg, 6)
+    vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk) + torch.diag_embed(1.0 - vmask6)
+
+    vinv = linalg.spd_inverse(vb)  # (B, V, 6, 6)
+    wvinv = wv @ vinv  # W_v V_v^-1
+    s_mat = u - torch.einsum("bvik,bvjk->bij", wvinv, wv)
+    c_gg = linalg.spd_inverse(s_mat)  # (B, pg, pg)
+    q = torch.einsum("bij,bvjk->bvik", c_gg, wvinv)  # S^-1 W_v V_v^-1
+    c_gv = -q
+    c_vv = torch.einsum("bvki,bwkj->bvwij", wvinv, q)  # (B, V, V, 6, 6)
+    diag = torch.arange(v, device=device)
+    c_vv[:, diag, diag] += vinv
+
+    # grouped layout [pg | (rot, tra) per view], then permute to the
+    # manifold layout [pg | 3V rot | 3V tra]
+    top = torch.cat([c_gg, c_gv.permute(0, 2, 1, 3).reshape(b, pg, 6 * v)], dim=2)
+    bottom = torch.cat(
+        [
+            c_gv.transpose(-1, -2).reshape(b, 6 * v, pg),
+            c_vv.permute(0, 1, 3, 2, 4).reshape(b, 6 * v, 6 * v),
+        ],
+        dim=2,
+    )
+    cg = torch.cat([top, bottom], dim=1)
+    gidx = np.concatenate(
+        [np.arange(pg)]
+        + [pg + 6 * i + np.arange(3) for i in range(v)]
+        + [pg + 6 * i + 3 + np.arange(3) for i in range(v)]
+    )
+    gidx = torch.as_tensor(gidx, device=device)
+    c_t = cg[:, gidx][:, :, gidx]
+    if tan_free is not None:
+        c_t = c_t * tan_free[:, :, None] * tan_free[:, None, :]
+    return c_t, torch.isfinite(c_t).all(dim=-1).all(dim=-1)
+
+
+def lm_core_schur(
+    residual_fn: Callable,
+    jac_fn: Callable,
+    xg0,
+    quats0,
+    trans0,
+    view_data,
+    *,
+    options: OptimOptions = OptimOptions(),
+    g_free=None,
+    view_valid=None,
+    lower_g=None,
+) -> SchurOutput:
+    """Minimize 0.5 * sum_v rho(|r_v|^2) over (global, per-view pose) blocks
+    for a batch of B independent problems.
+
+    Args:
+      residual_fn: (xg (B, pg), quats (B, V, 4), trans (B, V, 3),
+        *view_data) -> (B, V, m) residuals, masked rows zeroed.
+      jac_fn: same arguments -> (B, V, m, pg + 6) tangent Jacobian of the
+        retracted residual at zero tangent, columns [global, rotation
+        omega (3), translation (3)]; the rotation retraction is the right
+        multiplied quaternion exp. The global block is Euclidean.
+      xg0, quats0, trans0: initial global and per-view pose blocks.
+      view_data: tuple of (B, V, ...) tensors passed to both functions.
+      g_free: optional (pg,) or (B, pg) mask of free global coordinates.
+      view_valid: optional (B, V); invalid views get frozen pose blocks.
+      lower_g: optional (pg,) or (B, pg) lower bounds on the global block.
+    """
+    eps = options.epsilon
+    huber = options.huber_delta
+    max_it = options.max_iterations
+    dtype, device = xg0.dtype, xg0.device
+    b, pg = xg0.shape
+    v = quats0.shape[-2]
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    gmask = ones(b, pg) if g_free is None else g_free.to(dtype).expand(b, pg)
+    vmask = ones(b, v) if view_valid is None else view_valid.to(dtype)
+    vmask6 = vmask[..., None].expand(b, v, 6)
+
+    def clip_g(xg):
+        return xg if lower_g is None else torch.maximum(xg, lower_g.to(dtype))
+
+    def residuals(xg, quats, trans):
+        return residual_fn(xg, quats, trans, *view_data)
+
+    def weights(r):
+        return _huber(r, huber)
+
+    xg = clip_g(xg0)
+    quats, trans = quats0, trans0
+    r = residuals(xg, quats, trans)
+    _, cost = weights(r)
+    cost0 = cost
+    mu = torch.full((b,), _MU_INIT, dtype=dtype, device=device)
+    nu = torch.full((b,), 2.0, dtype=dtype, device=device)
+    it = torch.zeros((b,), dtype=torch.int64, device=device)
+    lin = torch.zeros_like(it)
+    termination = torch.zeros_like(it)
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+
+    def sel(mask, a, b_):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
+
+    while True:
+        outer = ~done & (it < max_it)
+        if not bool(outer.any()):
+            break
+        # one LINEARIZATION at the current iterate
+        jac = jac_fn(xg, quats, trans, *view_data)  # (B, V, m, pg + 6)
+        w, _ = weights(r)
+        sw = torch.sqrt(w)
+        rw = r * sw
+        jw = jac * sw[..., None]
+        a_blk = jw[..., :pg] * gmask[:, None, None, :]
+        b_blk = jw[..., pg:] * vmask6[:, :, None, :]
+        u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk)
+        wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk)
+        vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk)
+        gu = torch.einsum("bvmi,bvm->bi", a_blk, rw)
+        gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw)
+
+        grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
+        gtol_hit = grad_max <= eps
+
+        diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
+        diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
+        dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
+        dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
+
+        # Jacobi-scaled damped system; frozen dims get a unit diagonal so
+        # every factorization stays SPD (their delta is zeroed afterwards)
+        u_s = dg[:, :, None] * u * dg[:, None, :] + torch.diag_embed(1.0 - gmask)
+        w_s = dg[:, None, :, None] * wmat * dv[:, :, None, :]
+        v_s = dv[..., :, None] * vb * dv[..., None, :] + torch.diag_embed(1.0 - vmask6)
+        gu_s = dg * gu
+        gv_s = dv * gv
+        diag_gmask = torch.diag_embed(gmask)
+        diag_vmask6 = torch.diag_embed(vmask6)
+        x_norm = torch.sqrt(
+            torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
+        )
+
+        # inner damping-retry loop on the cached linearization
+        t_xg, t_quats, t_trans, t_r, t_cost = xg, quats, trans, r, cost
+        t_mu, t_nu, t_it = mu, nu, it
+        accepted = torch.zeros_like(done)
+        t_term = torch.zeros_like(termination)
+        while True:
+            active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
+            if not bool(active.any()):
+                break
+            u_mu = u_s + t_mu[:, None, None] * diag_gmask
+            v_mu = v_s + t_mu[:, None, None, None] * diag_vmask6
+            v_inv = linalg.spd_inverse(v_mu)  # (B, V, 6, 6)
+            wvinv = w_s @ v_inv  # (B, V, pg, 6)
+            s_mat = u_mu - torch.einsum("bvik,bvjk->bij", wvinv, w_s)
+            rhs = -(gu_s - torch.einsum("bvik,bvk->bi", wvinv, gv_s))
+            dg_t = linalg.spd_solve(s_mat, rhs)
+            dv_t = -torch.einsum(
+                "bvij,bvj->bvi", v_inv, gv_s + torch.einsum("bvji,bj->bvi", w_s, dg_t)
+            )
+
+            delta_g = dg * dg_t * gmask
+            delta_v = dv * dv_t * vmask6
+            delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
+            delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
+            delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
+
+            step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
+            xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+
+            xg_new = clip_g(xg + delta_g)
+            q_new, tr_new = _retract_views(quats, trans, delta_v)
+            r_new = residuals(xg_new, q_new, tr_new)
+            _, cost_new = weights(r_new)
+
+            pred = 0.5 * (
+                torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
+                + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
+            )
+            rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+            accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+            ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+
+            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+            mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+            term = torch.where(
+                gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+            ).to(termination.dtype)
+
+            t_xg = sel(accept, xg_new, t_xg)
+            t_quats = sel(accept, q_new, t_quats)
+            t_trans = sel(accept, tr_new, t_trans)
+            t_r = sel(accept, r_new, t_r)
+            t_cost = sel(accept, cost_new, t_cost)
+            t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+            t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+            t_it = sel(active, t_it + 1, t_it)
+            accepted = accepted | accept
+            t_term = sel(active, term, t_term)
+
+        # lanes outside the outer loop never went active: their t_* are
+        # their own state, so only the per-linearization fields need gating
+        xg, quats, trans, r, cost = t_xg, t_quats, t_trans, t_r, t_cost
+        mu, nu, it = t_mu, t_nu, t_it
+        done = torch.where(outer, t_term > 0, done)
+        termination = torch.where(outer, t_term, termination)
+        lin = lin + outer.to(lin.dtype)
+
+    return SchurOutput(
+        xg=xg,
+        quats=quats,
+        trans=trans,
+        cost=cost,
+        initial_cost=cost0,
+        iterations=it,
+        termination=termination,
+        success=termination > 0,
+        linearizations=lin,
+    )

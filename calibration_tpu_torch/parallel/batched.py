@@ -1,0 +1,238 @@
+"""Batched planar-intrinsics entry points (port of the intrinsics part of
+``calibration_tpu/parallel/batched.py``).
+
+The reference lifts single-problem cores over a problem axis with
+``jax.vmap`` inside one jitted program. Here every core already takes a
+leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
+between phases becomes a host decision. No mesh sharding yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..models.registry import PINHOLE
+from ..ops import intrinsics_linear, planarpose
+from ..ops.projection_residuals import projection_residuals_f32
+from ..optim.intrinsics import (
+    IntrinsicsOptimOptions,
+    intrinsics_covariance_device,
+    optimize_intrinsics_device,
+)
+from ..optim.lm import LMOutput
+
+# The reference's measured pinhole defaults (its CALIB_TWO_PHASE_CAP
+# override is not ported): run the full batch up to TWO_PHASE_CAP_A
+# iterations, then continue only the lanes that have not converged.
+TWO_PHASE_CAP_A = 6
+TWO_PHASE_MIN_BATCH = 64
+
+
+def phase_schedule(opts: IntrinsicsOptimOptions) -> tuple:
+    """Iteration budget of each phase: the full-width cap, then the rest of
+    ``opts.core.max_iterations`` for the unconverged lanes. The budget is
+    never exceeded (the reference adds a 1-iteration phase when the budget
+    is at or below the cap)."""
+    total = opts.core.max_iterations
+    cap = min(TWO_PHASE_CAP_A, total)
+    return (cap, total - cap) if total > cap else (cap,)
+
+
+def _merge_phase(lm_a: LMOutput, sol_a, out_b, idx):
+    """Scatter a continuation phase (run on lanes ``idx``, all unconverged
+    after phase A) back into phase A's outputs. Counters add up; the
+    initial cost stays phase A's."""
+    lm_b, sol_b = out_b[0], out_b[1:1 + len(sol_a)]
+    part = LMOutput(
+        x=lm_b.x,
+        cost=lm_b.cost,
+        initial_cost=lm_a.initial_cost[idx],
+        iterations=lm_a.iterations[idx] + lm_b.iterations,
+        termination=lm_b.termination,
+        success=lm_b.success,
+        linearizations=lm_a.linearizations[idx] + lm_b.linearizations,
+    )
+
+    def scat(full, p):
+        return full.index_copy(0, idx, p)
+
+    return (
+        LMOutput(*(scat(f, p) for f, p in zip(lm_a, part))),
+        tuple(scat(s_a, s_b) for s_a, s_b in zip(sol_a, sol_b)),
+    )
+
+
+def _phased_lm(solve, data_args, init_sol, schedule):
+    """Phased compacted-batch LM.
+
+    ``solve(iters, *data_args, *feedback)`` returns ``(lm_out,
+    *solution_leaves, cov, cov_ok)`` (cov ignored: phased callers defer
+    covariance to one final pass). The first phase runs every lane; each
+    later phase index-selects the lanes that have not converged (the host
+    reads their count once per phase), restarts them from their solution
+    (fresh damping, as a new solve) and scatters the results back. The
+    first ``len(init_sol)`` solution leaves feed the next phase. Lanes are
+    independent, so the result does not depend on which lanes share a
+    phase. Returns (lm_out, solution_leaf_tuple)."""
+    out = solve(schedule[0], *data_args, *init_sol)
+    lm_m, sol_m = out[0], tuple(out[1:-2])
+    for iters in schedule[1:]:
+        idx = torch.nonzero(~lm_m.success).squeeze(-1)
+        if idx.numel() == 0:
+            break
+        fb = tuple(s[idx] for s in sol_m[: len(init_sol)])
+        out_b = solve(iters, *(None if d is None else d[idx] for d in data_args), *fb)
+        lm_m, sol_m = _merge_phase(lm_m, sol_m, out_b, idx)
+    return lm_m, sol_m
+
+
+def _phased_solve(opts: IntrinsicsOptimOptions):
+    def solve(iters, obj, uv, mask, view_valid, init_intr, init_poses):
+        core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
+        return optimize_intrinsics_device(
+            obj, uv, init_intr, init_poses, mask=mask,
+            opts=dataclasses.replace(opts, core=core), view_valid=view_valid,
+        )
+
+    return solve
+
+
+def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase):
+    """LM refine (+ covariance): one solve over the batch, or the phased
+    solve with covariance deferred to one pass over the merged solution."""
+    if not two_phase:
+        return optimize_intrinsics_device(
+            obj, uv, init_intr, init_poses, mask=mask, opts=opts, view_valid=view_valid
+        )
+    lm_m, (intr_m, poses_m, err_m) = _phased_lm(
+        _phased_solve(opts), (obj, uv, mask, view_valid), (init_intr, init_poses),
+        phase_schedule(opts),
+    )
+    b, v = obj.shape[0], obj.shape[1]
+    if opts.core.compute_covariance:
+        cov, cov_ok = intrinsics_covariance_device(
+            obj, uv, intr_m, poses_m, mask=mask, opts=opts, view_valid=view_valid
+        )
+    else:
+        n_amb = PINHOLE.param_count + 7 * v
+        cov = torch.zeros((b, n_amb, n_amb), dtype=obj.dtype, device=obj.device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj.device)
+    return lm_m, intr_m, poses_m, err_m, cov, cov_ok
+
+
+def _init_intr(kmtx):
+    zeros = torch.zeros(kmtx.shape[:-1] + (PINHOLE.param_count - 5,), dtype=kmtx.dtype, device=kmtx.device)
+    return torch.cat([kmtx, zeros], dim=-1)
+
+
+def intrinsics_batch(
+    obj_xy,
+    img_uv,
+    mask=None,
+    opts: Optional[IntrinsicsOptimOptions] = None,
+    two_phase: bool | None = None,
+):
+    """Zhang seed + LM refine for a batch of B cameras (the path
+    ``bench.py`` times).
+
+    obj_xy/img_uv: (B, V, N, 2) float64; mask: (B, V, N). two_phase: None
+    -> on for B >= TWO_PHASE_MIN_BATCH. Returns (seed, (LMOutput, intr,
+    poses, view_errors, cov, cov_ok)).
+    """
+    opts = opts or IntrinsicsOptimOptions()
+    if mask is None:
+        mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
+    seed = intrinsics_linear.estimate_intrinsics(obj_xy, img_uv, mask)
+    kmtx = seed.kmtx
+    if not opts.optimize_skew:
+        kmtx = kmtx.clone()
+        kmtx[..., 4] = 0.0  # frozen skew starts at zero
+    if two_phase is None:
+        two_phase = obj_xy.shape[0] >= TWO_PHASE_MIN_BATCH
+    out = _refine(
+        obj_xy, img_uv, mask.to(obj_xy.dtype), None, _init_intr(kmtx), seed.c_se3_t,
+        opts, two_phase,
+    )
+    return seed, out
+
+
+def intrinsics_facade_batch(
+    obj_xy,
+    img_uv,
+    mask=None,
+    view_valid=None,
+    opts: Optional[IntrinsicsOptimOptions] = None,
+    bounds=None,
+    zero_skew: bool = True,
+    two_phase: bool | None = None,
+):
+    """Facade-parity fleet solve: the per-camera pipeline of
+    PlanarIntrinsicCalibrationFacade (bounds-sanitized Zhang seed,
+    frozen-skew zeroing, estimate_planar_pose inits, safe-pose substitution,
+    view_valid pose freezing), then the LM refine and covariance, then the
+    independent float32 reprojection-RMS QA recheck through the CUDA kernel
+    (``reprojection_rms_batch``).
+
+    obj_xy/img_uv: (B, V, N, 2) float64; mask: (B, V, N); view_valid:
+    (B, V). two_phase: None -> on for B >= TWO_PHASE_MIN_BATCH.
+
+    Returns (seed, pose_ok (B, V), (LMOutput, intr, poses, view_errors,
+    cov, cov_ok), rms_check (B, V) float32).
+    """
+    opts = opts or IntrinsicsOptimOptions()
+    dtype, device = obj_xy.dtype, obj_xy.device
+    b, v = obj_xy.shape[0], obj_xy.shape[1]
+    mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=device) if mask is None else mask.to(dtype)
+    view_valid = torch.ones((b, v), dtype=dtype, device=device) if view_valid is None else view_valid.to(dtype)
+    vmask = mask * view_valid[..., None]
+
+    seed = intrinsics_linear.estimate_intrinsics(obj_xy, img_uv, vmask, bounds=bounds)
+    kmtx = seed.kmtx
+    if zero_skew:
+        kmtx = kmtx.clone()
+        kmtx[..., 4] = 0.0
+    _, _, _, pose_ok = planarpose.pose_from_homography_pixel(kmtx[:, None, :], seed.homographies)
+    init_poses = planarpose.estimate_planar_pose(
+        obj_xy, img_uv, kmtx[:, None, :].expand(b, v, 5), vmask
+    )
+    safe = torch.eye(4, dtype=dtype, device=device)
+    safe[2, 3] = 1.0
+    good = torch.isfinite(init_poses).all(dim=-1).all(dim=-1) & (view_valid > 0)
+    init_poses = torch.where(good[..., None, None], init_poses, safe)
+
+    if two_phase is None:
+        two_phase = b >= TWO_PHASE_MIN_BATCH
+    out = _refine(obj_xy, img_uv, vmask, view_valid, _init_intr(kmtx), init_poses, opts, two_phase)
+    rms_check = reprojection_rms_batch(out[2], out[1], obj_xy, img_uv, vmask)
+    return seed, pose_ok, out, rms_check
+
+
+def _rms_from_residuals(res, mask_r):
+    cnt = torch.clamp(torch.sum(mask_r.to(res.dtype), dim=-1), min=1.0)
+    return torch.sqrt(torch.sum(res * res, dim=(-2, -1)) / (2.0 * cnt))
+
+
+def reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask=None):
+    """Fleet QA metric: per-view reprojection RMS for B cameras through the
+    fused float32 projection-residual kernel (``projection_residuals_f32``:
+    the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor).
+
+    c_se3_t: (B, V, 4, 4); intrs: (B, 10); obj_xy/img_uv: (B, V, N, 2);
+    mask: (B, V, N). Returns (B, V) float32 RMS in pixels.
+    """
+    b, v, n = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
+    if mask is None:
+        mask = torch.ones((b, v, n), dtype=torch.float32, device=obj_xy.device)
+    mask_r = mask.reshape(b * v, n).to(torch.float32)
+    res = projection_residuals_f32(
+        c_se3_t[..., :3, :3].reshape(b * v, 3, 3),
+        c_se3_t[..., :3, 3].reshape(b * v, 3),
+        intrs[:, None, :].expand(b, v, intrs.shape[-1]).reshape(b * v, -1),
+        obj_xy.reshape(b * v, n, 2),
+        img_uv.reshape(b * v, n, 2),
+        mask_r,
+    )
+    return _rms_from_residuals(res, mask_r).reshape(b, v)
