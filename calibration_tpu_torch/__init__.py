@@ -2,8 +2,10 @@
 
 The JAX package beside it is the reference: every module here keeps its
 counterpart's name and layout (``models``, ``ops``, ``optim``,
-``parallel``), and the tests feed both the same problems. Differences in
-idiom:
+``parallel``, ``io``, ``native``, ``pipeline``, ``utils``, ``apps``), and
+the tests feed both the same problems. The JAX-free host modules (JSON
+I/O, dataset, loaders, pipeline, reports) are copies, since the JAX
+package cannot be imported without JAX. Differences in idiom:
 
 - ``vmap`` over problems is a leading batch dimension written out;
 - ``lax.while_loop`` is a Python loop over batched tensors with per-lane

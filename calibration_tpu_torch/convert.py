@@ -40,6 +40,8 @@ def intrinsics_options(opts) -> IntrinsicsOptimOptions:
     """The reference's ``IntrinsicsOptimOptions`` -> the port's."""
     values = _known_fields(IntrinsicsOptimOptions, dataclasses.asdict(opts))
     values["core"] = _optim_options(values["core"])
+    if values["bounds"] is not None:
+        values["bounds"] = CalibrationBounds(**values["bounds"])
     return IntrinsicsOptimOptions(**values)
 
 

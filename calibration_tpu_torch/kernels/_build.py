@@ -48,37 +48,49 @@ def _sources() -> list[Path]:
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def cached_output(root: Path, name: str, flags, sources, key: str = "") -> Path:
+    """Where the output ``name`` of these flags, sources and ``key`` lives:
+    ``root/<hash of them>/name``."""
+    h = hashlib.sha256(" ".join((*flags, key)).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libcalibration_tpu_torch_kernels.so"
+    return root / h.hexdigest()[:16] / name
+
+
+def compile_once(compiler, flags, sources, out: Path) -> Path:
+    """Run ``compiler flags -o out sources`` unless ``out`` exists; returns
+    ``out``. The output is written to a temporary name and renamed, so
+    concurrent builds never load a half-written file. A failed compile
+    raises RuntimeError with the compiler's output."""
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [compiler, *flags, "-o", tmp, *map(str, sources)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{compiler} failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    return cached_output(BUILD_ROOT, "libcalibration_tpu_torch_kernels.so", NVCC_FLAGS, _sources())
 
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path. The library is written to a temporary name and renamed, so
-    concurrent builds never load a half-written file."""
-    lib = library_path()
-    if lib.is_file():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    path."""
+    return compile_once(_nvcc(), NVCC_FLAGS, _sources(), library_path())
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,7 +1,9 @@
 """Camera model registry (port of ``calibration_tpu/models/registry.py``).
 
 Only the pinhole + Brown-Conrady model is ported so far; the spec carries
-the fields the intrinsics solver reads.
+the fields the intrinsics solver reads. ``get_model`` knows the reference's
+names: a Scheimpflug name raises ``NotImplementedError`` (not ported yet),
+an unknown name ``KeyError``.
 """
 
 from __future__ import annotations
@@ -33,3 +35,16 @@ PINHOLE = CameraModelSpec(
     idx_dist0=pinhole.IDX_SKEW + 1,
     project=pinhole.project,
 )
+
+MODELS = {PINHOLE.name: PINHOLE, "pinhole": PINHOLE}
+# the reference's other model, ported with the remaining models
+NOT_PORTED = ("scheimpflug_pinhole_brown_conrady", "scheimpflug")
+
+
+def get_model(name: str) -> CameraModelSpec:
+    if name in MODELS:
+        return MODELS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"Camera model '{name}' is not ported yet")
+    known = sorted(set(MODELS) | set(NOT_PORTED))
+    raise KeyError(f"Unknown camera model '{name}'; known: {known}")

@@ -10,6 +10,7 @@ import torch
 from . import linalg
 
 MIN_SAMPLES = 4
+COLLINEARITY_EPS = 1e-6
 
 
 def normalize_points_2d(pts, mask=None):
@@ -88,6 +89,24 @@ def symmetric_transfer_error(h, src, dst):
     e1 = torch.sum((dst - dst_hat) ** 2, dim=-1)
     e2 = torch.sum((src - src_hat) ** 2, dim=-1)
     return torch.sqrt(0.5 * (e1 + e2))
+
+
+def has_near_collinear_triplet(pts, eps: float = COLLINEARITY_EPS):
+    """Degeneracy check over every triplet of a minimal sample. pts:
+    (..., K, 2), K static (4 for the homography), so the loop unrolls to
+    K-choose-3 elementwise area evaluations. Returns (...,) bool."""
+    k = pts.shape[-2]
+    flags = []
+    for i in range(k):
+        for j in range(i + 1, k):
+            for l in range(j + 1, k):
+                a, b, c = pts[..., i, :], pts[..., j, :], pts[..., l, :]
+                area = torch.abs(
+                    (b[..., 0] - a[..., 0]) * (c[..., 1] - a[..., 1])
+                    - (b[..., 1] - a[..., 1]) * (c[..., 0] - a[..., 0])
+                )
+                flags.append(area < eps)
+    return torch.stack(flags, dim=-1).any(dim=-1)
 
 
 def symmetric_rms_px(h, src, dst, inlier_mask):

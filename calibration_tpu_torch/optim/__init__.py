@@ -1,8 +1,10 @@
 from . import blocks, core, intrinsics, lm, lm_schur, manifold
 from .core import OptimOptions, OptimResult, OptimizerType, TerminationType
 from .intrinsics import (
+    IntrinsicsOptimizationResult,
     IntrinsicsOptimOptions,
     intrinsics_covariance_device,
+    optimize_intrinsics,
     optimize_intrinsics_device,
 )
 from .lm import LMOutput, covariance_from_tangent
@@ -12,7 +14,8 @@ from .manifold import ProductManifold, euclid, quat
 __all__ = [
     "blocks", "core", "intrinsics", "lm", "lm_schur", "manifold",
     "OptimOptions", "OptimResult", "OptimizerType", "TerminationType",
-    "IntrinsicsOptimOptions", "intrinsics_covariance_device", "optimize_intrinsics_device",
+    "IntrinsicsOptimOptions", "IntrinsicsOptimizationResult", "intrinsics_covariance_device",
+    "optimize_intrinsics", "optimize_intrinsics_device",
     "LMOutput", "covariance_from_tangent",
     "SchurOutput", "lm_core_schur", "tangent_covariance",
     "ProductManifold", "euclid", "quat",

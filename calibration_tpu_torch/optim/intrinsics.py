@@ -1,7 +1,8 @@
 """Joint intrinsics + per-view pose refinement for the pinhole model,
 batched over cameras (port of ``calibration_tpu/optim/intrinsics.py``:
-``optimize_intrinsics_device`` with the Schur solver at float64, and
-``intrinsics_covariance_device``).
+``optimize_intrinsics_device`` with the Schur solver at float64,
+``intrinsics_covariance_device``, and the host wrapper
+``optimize_intrinsics``).
 
 Parameter layout per camera: [intr(pc), quat_0..quat_V, t_0..t_V], the
 reference's IntrinsicBlocks order. One Huber block per view. fx, fy get a
@@ -17,24 +18,28 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models.camera_matrix import CalibrationBounds
 from ..models.registry import PINHOLE
 from ..ops import se3
 from . import blocks, lm, lm_schur
-from .core import OptimOptions
+from .core import OptimOptions, OptimResult, TerminationType, brief_report
 from .manifold import ProductManifold, euclid, quat
 
 
 @dataclasses.dataclass(frozen=True)
 class IntrinsicsOptimOptions:
-    """The solver fields of the reference's IntrinsicsOptimOptions (its
-    ``bounds`` and ``mixed_coarse_epsilon`` are not read by the float64
-    Schur solve and are not carried)."""
+    """The reference's IntrinsicsOptimOptions, field for field and in its
+    order, so JSON configs and reports (which write positional ``field_N``
+    keys) match. ``bounds`` and ``mixed_coarse_epsilon`` are carried, not
+    read: the float64 Schur solve reads neither, as in the reference."""
 
     core: OptimOptions = dataclasses.field(default_factory=OptimOptions)
     num_radial: int = 2
     optimize_skew: bool = False
+    bounds: CalibrationBounds | None = None
     fixed_distortion_indices: tuple = ()
     fixed_distortion_values: tuple = ()
+    mixed_coarse_epsilon: float = 1e-4
 
 
 def make_manifold(pc: int, num_views: int) -> ProductManifold:
@@ -199,3 +204,45 @@ def optimize_intrinsics_device(
     cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
     view_errors = torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
     return out, sout.xg, poses, view_errors, cov, cov_ok
+
+
+@dataclasses.dataclass
+class IntrinsicsOptimizationResult:
+    core: OptimResult
+    camera: np.ndarray  # flat intrinsics (model packing)
+    c_se3_t: np.ndarray  # (V, 4, 4)
+    view_errors: np.ndarray
+
+
+def optimize_intrinsics(
+    obj_xy, img_uv, init_intr, init_c_se3_t, mask=None, opts=None, view_valid=None
+) -> IntrinsicsOptimizationResult:
+    """Host-facing wrapper for ONE camera, a B = 1 call of
+    ``optimize_intrinsics_device``. obj_xy/img_uv: (V, N, 2); init_intr:
+    (pc,); init_c_se3_t: (V, 4, 4); mask: (V, N); view_valid: (V,); all
+    tensors on one device. Requires >= 4 views."""
+    opts = opts or IntrinsicsOptimOptions()
+    if obj_xy.shape[0] < 4:
+        raise ValueError("Insufficient views for calibration (at least 4 required).")
+    out, intr, poses, view_errors, cov, cov_ok = optimize_intrinsics_device(
+        obj_xy[None], img_uv[None], init_intr[None], init_c_se3_t[None],
+        mask=None if mask is None else mask[None], opts=opts,
+        view_valid=None if view_valid is None else view_valid[None],
+    )
+    core = OptimResult(
+        success=bool(out.success[0]),
+        covariance=(
+            cov[0].cpu().numpy() if (opts.core.compute_covariance and bool(cov_ok[0])) else None
+        ),
+        final_cost=float(out.cost[0]),
+        iterations=int(out.iterations[0]),
+        termination=TerminationType(int(out.termination[0])),
+        initial_cost=float(out.initial_cost[0]),
+    )
+    core.report = brief_report(core)
+    return IntrinsicsOptimizationResult(
+        core=core,
+        camera=intr[0].cpu().numpy(),
+        c_se3_t=poses[0].cpu().numpy(),
+        view_errors=view_errors[0].cpu().numpy(),
+    )

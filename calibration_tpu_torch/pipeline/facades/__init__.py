@@ -1,0 +1,12 @@
+from . import intrinsics
+from .intrinsics import (
+    CameraConfig,
+    IntrinsicCalibrationConfig,
+    IntrinsicCalibrationOptions,
+    IntrinsicCalibrationOutputs,
+    PlanarIntrinsicCalibrationFacade,
+    bounds_from_image_size,
+    collect_planar_views,
+    load_calibration_config,
+    print_calibration_summary,
+)

@@ -1,0 +1,159 @@
+"""Dataset loaders (reference: include/calib/pipeline/loaders.h +
+src/pipeline/loaders.cpp).
+
+A copy of ``calibration_tpu/pipeline/loaders.py``, which is JAX-free but cannot be
+imported without importing JAX (``calibration_tpu/__init__.py`` imports it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import List, Optional
+
+from ..io import jsonio
+from .dataset import CalibrationDataset, PlanarDetections, PlanarImageDetections
+
+
+class DatasetLoader:
+    """pipeline.h:98-102."""
+
+    def load(self) -> CalibrationDataset:
+        raise NotImplementedError
+
+
+class LazyRawJson(dict):
+    """``dataset.raw_json`` mapping that defers ``json.loads`` of each
+    payload until first access. The full parse of a multi-MB detections file
+    costs ~4ms in stdlib json; the pipeline itself never reads ``raw_json``
+    (it is retained for downstream tooling, loaders.cpp:69), so the 16-file
+    fleet saves ~65ms/run. Semantics match a plain dict — parsed values are
+    cached and mutation works normally."""
+
+    def __init__(self):
+        super().__init__()
+        self._pending: dict = {}
+
+    def set_text(self, key: str, text: bytes) -> None:
+        self._pending[key] = text
+        super().__setitem__(key, None)  # placeholder keeps ordering/len/contains
+
+    def __getitem__(self, key):
+        if key in self._pending:
+            super().__setitem__(key, json.loads(self._pending.pop(key)))
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def values(self):
+        return [self[k] for k in self]
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def __setitem__(self, key, value):
+        self._pending.pop(key, None)
+        super().__setitem__(key, value)
+
+
+def _parse_detections(raw: Optional[dict], text: bytes) -> PlanarDetections:
+    """Parse one detections payload: C++ codec fast path (array-backed
+    images, no per-point Python objects — 93x faster on a 16-sensor fleet),
+    reflection fallback otherwise (legacy positional-key payloads, or no
+    compiler). Both produce identical downstream results: every consumer
+    reads points through PlanarImageDetections.num_points()/arrays().
+
+    ``raw`` may be None when the caller skipped the full ``json.loads``; the
+    native path rebuilds the header dict from the codec's verbatim
+    header_json (top-level object minus "images"), and the fallback parses
+    the full payload itself."""
+    if raw is None or "images" in raw:
+        try:
+            from .. import native
+
+            if native.available():
+                pk = native.load_detections_packed(text)
+                shallow = dict(raw) if raw is not None else json.loads(pk.header_json)
+                shallow["images"] = []
+                det = jsonio.from_jsonable(shallow, PlanarDetections)
+                counts = pk.mask.sum(axis=1)
+                for i, fname in enumerate(pk.files):
+                    img = PlanarImageDetections(file=fname)
+                    k = int(counts[i])
+                    img.set_arrays(
+                        pk.obj_xy[i, :k], pk.img_uv[i, :k], pk.point_ids[i, :k]
+                    )
+                    det.images.append(img)
+                return det
+        except Exception:  # pragma: no cover — any native hiccup
+            pass  # falls through to the reflection path
+    return jsonio.from_jsonable(
+        raw if raw is not None else json.loads(text), PlanarDetections
+    )
+
+
+@dataclasses.dataclass
+class Entry:
+    """loaders.h:23-26."""
+
+    path: str
+    sensor_id: Optional[str] = None
+
+
+class JsonPlanarDatasetLoader(DatasetLoader):
+    """Multi-file JSON loader with sensor-id validation and raw payload
+    retention (loaders.cpp:20-75)."""
+
+    def __init__(self, entries: Optional[List[Entry]] = None):
+        self.entries: List[Entry] = list(entries or [])
+
+    def add_entry(self, path, sensor_id: Optional[str] = None) -> None:
+        self.entries.append(Entry(str(path), sensor_id))
+
+    def load(self) -> CalibrationDataset:
+        if not self.entries:
+            raise RuntimeError("JsonPlanarDatasetLoader: no dataset entries configured.")
+        from .. import native
+
+        dataset = CalibrationDataset()
+        dataset.metadata = {"sources": []}
+        dataset.raw_json = LazyRawJson()
+        # with the native codec the full python json.loads is skipped: the
+        # codec hands back the header, and raw_json parses lazily on access
+        defer_raw = native.available()
+        for entry in self.entries:
+            p = Path(entry.path)
+            try:
+                text = p.read_bytes()
+            except OSError as e:
+                raise RuntimeError(
+                    f"JsonPlanarDatasetLoader: failed to open {entry.path}"
+                ) from e
+            raw = None if defer_raw else json.loads(text)
+            detections = _parse_detections(raw, text)
+            detections.source_file = str(p)
+            if entry.sensor_id is not None and detections.sensor_id != entry.sensor_id:
+                raise RuntimeError(
+                    f"Requested sensor_id '{entry.sensor_id}' not found in dataset."
+                )
+            source_info = {"path": str(p), "sensor_id": detections.sensor_id}
+            if detections.metadata:
+                source_info["detector"] = detections.metadata.get("detector", {})
+            dataset.metadata["sources"].append(source_info)
+            if raw is None:
+                dataset.raw_json.set_text(str(p), text)
+            else:
+                dataset.raw_json[str(p)] = raw
+            dataset.planar_cameras.append(detections)
+        dataset.schema_version = 1
+        return dataset
+
+
+def read_detections(path) -> PlanarDetections:
+    """One detections file, parsed as ``JsonPlanarDatasetLoader`` parses it
+    (the native codec when it is available); ``source_file`` is ``path``."""
+    detections = _parse_detections(None, Path(path).read_bytes())
+    detections.source_file = str(path)
+    return detections

@@ -14,6 +14,14 @@
    result and that the kernel was launched, then times a second call.
 5. Solves the first 8 problems again on the CPU and holds the final costs
    against the card's within 1e-7 relative.
+6. Drives the planar_intrinsics app (``--fleet --device cuda``) on the same
+   problem set written as 256 detections files, with 4 of the 88 points of
+   every view displaced by 20-40 px and the RANSAC prefilter on: a first and
+   a warm call, each timed by layer (ingest, prefilter, solve, QA kernel,
+   report writing). It checks the reports (every displaced point rejected
+   and every clean point kept, every camera converged, mean RMS in
+   [0.15, 0.25] px, no QA warning), that the kernel and the prefilter ran
+   on the card, and card/CPU parity of the app on the first 8 sensors.
 
 Earlier lines report each phase; the line before the last is the kernels
 JSON record, and the last line is the device JSON record. Any failed check
@@ -22,23 +30,37 @@ exits non-zero. The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from calibration_tpu_torch import native
+from calibration_tpu_torch.apps import planar_intrinsics
 from calibration_tpu_torch.kernels import _build
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
+from calibration_tpu_torch.ops import ransac
 from calibration_tpu_torch.optim import IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import intrinsics_facade_batch
+from calibration_tpu_torch.parallel import batched, intrinsics_facade_batch
+from calibration_tpu_torch.pipeline import loaders, reports
+from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
 
 KERNEL_ATOL_PX = 5e-3  # f32 rounding of ~640 px values; the JAX kernel's gate
 QA_ATOL_PX = 5e-3  # the facade's rms_check warning threshold
 COST_PARITY_RTOL = 1e-7  # card vs CPU final robust cost
+CAMERA_PARITY_RTOL = 1e-6  # card vs CPU refined camera, app reports
+FLEET = 256  # sensors of the app phase
+OUTLIERS = 4  # displaced points per view, 20-40 px
+PARITY_SENSORS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -149,6 +171,208 @@ def make_problems(batch, views=10, rows=8, cols=11, noise=0.2, seed=7):
     return np.tile(obj[None, None], (batch, views, 1, 1)), uv, intr
 
 
+def detections_payload(sensor_id, obj, uv):
+    """A detections JSON payload in the committed format
+    (examples/data/detections_cam0.json) for views uv (V, N, 2) of target
+    points obj (N, 2)."""
+    return {
+        "image_directory": "synthetic", "feature_type": "synthetic_grid", "algo_version": "1",
+        "params_hash": "synthetic", "sensor_id": sensor_id, "tags": ["synthetic"],
+        "metadata": {"detector": {"name": "synthetic_grid"}}, "source_file": "",
+        "images": [
+            {
+                "file": f"{sensor_id}_img_{v:03d}.png",
+                "points": [
+                    {"x": float(uv[v, j, 0]), "y": float(uv[v, j, 1]), "id": j,
+                     "local_x": float(obj[j, 0]), "local_y": float(obj[j, 1]), "local_z": 0.0}
+                    for j in range(obj.shape[0])
+                ],
+            }
+            for v in range(uv.shape[0])
+        ],
+    }
+
+
+def write_fleet(directory, b, seed=11):
+    """The make_problems(b) set as b detections files in the committed
+    format (examples/data/detections_cam0.json) plus a config listing the b
+    cameras (image 640 x 480, min_corners_per_view 20, RANSAC prefilter at
+    its defaults, max_iterations 40, epsilon 1e-9, covariance on). In every
+    view OUTLIERS points are displaced by 20-40 px in a random direction,
+    from a generator seeded per sensor, so a sensor's data does not depend
+    on b. Returns (config path, feature paths, displaced (b, V, N) bool)."""
+    directory = Path(directory)
+    obj, uv, _ = make_problems(b)
+    v, n = uv.shape[1], uv.shape[2]
+    displaced = np.zeros((b, v, n), bool)
+    features = []
+    for i in range(b):
+        rng = np.random.default_rng([seed, i])
+        for j in range(v):
+            pick = rng.choice(n, OUTLIERS, replace=False)
+            ang = rng.uniform(0, 2 * np.pi, OUTLIERS)
+            uv[i, j, pick] += rng.uniform(20, 40, OUTLIERS)[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+            displaced[i, j, pick] = True
+        path = directory / f"detections_cam{i:03d}.json"
+        path.write_text(json.dumps(detections_payload(f"cam{i:03d}", obj[i, 0], uv[i])))
+        features.append(str(path))
+    return write_config(directory, b), features, displaced
+
+
+def write_config(directory, b) -> str:
+    config = {
+        "algorithm": "planar",
+        "options": {
+            "optim_options": {"core": {"max_iterations": 40, "epsilon": 1e-9, "compute_covariance": True}},
+            "estim_options": {"homography_ransac": {}},
+            "min_corners_per_view": 20,
+            "refine": True,
+        },
+        "cameras": [
+            {"camera_id": f"cam{i:03d}", "model": "pinhole_brown_conrady", "image_size": [640, 480]}
+            for i in range(b)
+        ],
+    }
+    path = Path(directory) / f"config_{b}.json"
+    path.write_text(json.dumps(config))
+    return str(path)
+
+
+@contextlib.contextmanager
+def layer_timers(device: str):
+    """Wall time by layer inside the app, each layer closed by a
+    synchronize on the card: yields a Counter of seconds filled in as the
+    app runs; the wrapped functions are restored on exit."""
+    seconds = collections.Counter()
+    targets = (
+        (loaders, "read_detections", "ingest"),
+        (facade_mod.PlanarIntrinsicCalibrationFacade, "_prefilter", "prefilter"),
+        (facade_mod, "intrinsics_facade_batch", "solve"),
+        (batched, "reprojection_rms_batch", "qa_kernel"),
+        (reports, "build_planar_intrinsics_report", "report"),
+        (native, "dumps_fast", "report"),
+    )
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn, label):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                seconds[label] += time.perf_counter() - t0
+        return wrapper
+
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    try:
+        for (owner, name, label), (_, _, fn) in zip(targets, saved):
+            setattr(owner, name, timed(fn, label))
+        yield seconds
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def run_app(config, features, out, device):
+    """One planar_intrinsics --fleet call; returns (report JSON, wall s,
+    seconds by layer). Its own output goes to a buffer, shown on failure."""
+    log = io.StringIO()
+    with layer_timers(device) as seconds, contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        t0 = time.perf_counter()
+        rc = planar_intrinsics.main(
+            ["--fleet", "--device", device, "--config", config, "--features", *features, "-o", str(out)]
+        )
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        print(log.getvalue()[-4000:])
+    check(rc == 0, f"the app exits 0 on {device} for {len(features)} sensors")
+    return json.loads(Path(out).read_text())["reports"][0], wall, seconds
+
+
+def check_fleet_report(report, displaced):
+    cams = report["cameras"]
+    check(len(cams) == len(displaced), f"{len(displaced)} camera reports")
+    n = displaced.shape[-1]
+    exact = all(
+        pv["homography"]["inliers"][:n] == (~displaced[i, j]).tolist()
+        and not any(pv["homography"]["inliers"][n:])
+        for i, cam in enumerate(cams)
+        for j, pv in enumerate(cam["per_view"])
+    )
+    check(exact, "every displaced point rejected and every clean point kept by the prefilter")
+    check(all(c["optimization"]["success"] for c in cams), "every camera converged")
+    rms = float(np.mean([c["global_rms_px"] for c in cams]))
+    print(f"[smoke] app: mean global_rms_px {rms!r}")
+    check(0.15 <= rms <= 0.25, "mean global RMS within [0.15, 0.25] px")
+    check(all(c["warnings"]["rms_check"] == 0 for c in cams), "no QA recheck warning")
+
+
+def camera_vector(cam):
+    k = cam["camera"]["kmtx"]
+    return np.array([k["fx"], k["fy"], k["cx"], k["cy"], k["skew"], *cam["camera"]["distortion"]["coeffs"]])
+
+
+def check_parity(card, cpu, what, camera=True):
+    masks = all(
+        [pv["homography"]["inliers"] for pv in a["per_view"]] == [pv["homography"]["inliers"] for pv in b["per_view"]]
+        for a, b in zip(card["cameras"], cpu["cameras"])
+    )
+    check(masks, f"{what}: identical inlier masks")
+    cost = max(
+        abs(a["optimization"]["final_cost"] - b["optimization"]["final_cost"]) / abs(b["optimization"]["final_cost"])
+        for a, b in zip(card["cameras"], cpu["cameras"])
+    )
+    print(f"[smoke] {what}: final cost max rel diff {cost!r}")
+    check(cost <= COST_PARITY_RTOL, f"{what}: final cost within {COST_PARITY_RTOL} relative")
+    if camera:
+        cam = max(
+            float(np.max(np.abs(camera_vector(a) - camera_vector(b)) / np.abs(camera_vector(b)).clip(1e-300)))
+            for a, b in zip(card["cameras"], cpu["cameras"])
+        )
+        print(f"[smoke] {what}: camera max rel diff {cam!r}")
+        check(cam <= CAMERA_PARITY_RTOL, f"{what}: camera within {CAMERA_PARITY_RTOL} relative")
+
+
+def app_phase(card: str) -> int:
+    """The planar_intrinsics app over FLEET sensors on the card, then
+    card/CPU parity on the first PARITY_SENSORS. Returns the kernel
+    launches of the app's first call, the path's counted run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        config, features, displaced = write_fleet(tmp, FLEET)
+        print(f"[smoke] app: wrote {FLEET} detections files in {time.perf_counter() - t0!r} s")
+        launches = None
+        for call in ("first", "warm"):
+            pr.launches = 0
+            rounds = ransac.rounds["cuda"]
+            report, wall, seconds = run_app(config, features, Path(tmp) / f"report_{call}.json", "cuda")
+            rounds = ransac.rounds["cuda"] - rounds
+            if launches is None:
+                launches = pr.launches  # the path's one counted run; the warm call repeats it
+            layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
+            print(f"[smoke] app {call} call: {wall!r} s = {FLEET / wall!r} sensors/s on {card}; {layers}; "
+                  f"other {wall - sum(seconds.values())!r} s; kernel launches {pr.launches}, "
+                  f"prefilter rounds on the card {rounds}")
+            check_fleet_report(report, displaced)
+            check(pr.launches > 0, "the app launched the projection-residual kernel")
+            check(rounds > 0, "the app's RANSAC prefilter ran on the card")
+
+        k = PARITY_SENSORS
+        config_k = write_config(tmp, k)
+        cpu, _, _ = run_app(config_k, features[:k], Path(tmp) / "report_cpu.json", "cpu")
+        card_k, _, _ = run_app(config_k, features[:k], Path(tmp) / "report_card8.json", "cuda")
+        check_parity(card_k, cpu, f"app card vs CPU, {k} sensors")
+        fleet_k = dict(report, cameras=report["cameras"][:k])
+        # the fleet solve runs two LM phases, the 8-sensor solves one: the
+        # minimum agrees in cost, not along the flat fx/k3 valley
+        check_parity(fleet_k, cpu, f"app card ({FLEET} sensors) vs CPU, first {k}", camera=False)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -213,6 +437,8 @@ def main() -> int:
     rel = float(((cost_gpu - cost_cpu).abs() / cost_cpu.abs()).max())
     print(f"[smoke] card vs CPU final cost, first {k} problems: max rel diff {rel!r}")
     check(rel <= COST_PARITY_RTOL, f"card/CPU cost parity within {COST_PARITY_RTOL} relative")
+
+    launches += app_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "projection_residuals_f32",

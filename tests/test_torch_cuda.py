@@ -1,21 +1,26 @@
 """Card-only tests of the PyTorch port: the CUDA projection-residual kernel
-against its plain version, and the facade on the card against the same
-facade on the CPU. Every test here is marked ``cuda`` and skips without a
-CUDA device. This file imports no JAX, so it also runs where JAX is not
-installed:
+against its plain version, the facade on the card against the same facade
+on the CPU, the batched RANSAC prefilter on the card, and the
+planar_intrinsics app on the card against the app on the CPU. Every test
+here is marked ``cuda`` and skips without a CUDA device. This file imports
+no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from calibration_tpu_torch.apps import planar_intrinsics
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
-from calibration_tpu_torch.ops import se3
+from calibration_tpu_torch.ops import ransac, se3
 from calibration_tpu_torch.optim import IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.parallel import intrinsics_facade_batch
+from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +91,61 @@ def test_facade_on_card_matches_cpu(cuda_device):
     rel = ((out_gpu[0].cost.cpu() - out_cpu[0].cost).abs() / out_cpu[0].cost).max()
     assert float(rel) <= 1e-7
     assert float((rms_gpu.cpu() - rms_cpu).abs().max()) <= ATOL_PX
+
+
+def test_prefilter_on_card_recovers_planted_outliers(cuda_device):
+    """Pure pinhole views of an 8x11 grid, 0.2 px noise, 6 points per view
+    moved by 30-80 px, 2 views with a masked tail: the card's prefilter
+    keeps exactly the clean valid points, as the CPU's does."""
+    rng = np.random.default_rng(4)
+    v = 24
+    ys, xs = np.meshgrid(np.arange(8), np.arange(11), indexing="ij")
+    grid = np.stack([xs.ravel() * 0.03, ys.ravel() * 0.03], -1)
+    grid = grid - grid.mean(0)
+    ang = 2 * np.pi * np.arange(v) / v
+    w = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.1 * np.sin(2 * ang)], -1)
+    t = np.stack([0.06 * np.cos(ang), 0.06 * np.sin(ang), 0.9 + 0.08 * np.sin(ang)], -1)
+    pts = torch.as_tensor(np.concatenate([grid, np.zeros((len(grid), 1))], -1))
+    pc = torch.einsum("vij,nj->vni", se3.exp_so3(torch.as_tensor(w)), pts) + torch.as_tensor(t)[:, None, :]
+    cam = torch.as_tensor(np.concatenate([CAMERA[:5], np.zeros(5)]))
+    uv = (pinhole.project(cam, pc) + torch.as_tensor(rng.normal(0, 0.2, pc.shape[:-1] + (2,)))).numpy()
+    n = grid.shape[0]
+    planted = np.zeros((v, n), bool)
+    for i in range(v):
+        bad = rng.choice(n, 6, replace=False)
+        uv[i, bad] += rng.uniform(30, 80, (6, 2)) * rng.choice([-1, 1], (6, 2))
+        planted[i, bad] = True
+    mask = np.ones((v, n), bool)
+    mask[:2, -10:] = False
+    obj = np.broadcast_to(grid, (v, n, 2)).copy()
+    opts = ransac.RansacOptions()
+    before = ransac.rounds["cuda"]
+    got = ransac.ransac_homography(
+        *(torch.as_tensor(a, device=cuda_device) for a in (obj, uv)), opts,
+        mask=torch.as_tensor(mask, device=cuda_device),
+    )
+    torch.cuda.synchronize()
+    assert ransac.rounds["cuda"] > before
+    assert bool(got.success.all())
+    np.testing.assert_array_equal(got.inlier_mask.cpu().numpy(), mask & ~planted)
+    cpu = ransac.ransac_homography(torch.as_tensor(obj), torch.as_tensor(uv), opts, mask=torch.as_tensor(mask))
+    np.testing.assert_array_equal(got.inlier_mask.cpu().numpy(), cpu.inlier_mask.numpy())
+
+
+def test_app_on_card_matches_cpu(cuda_device, tmp_path):
+    """--fleet on examples/data with --device cuda gives the --device cpu
+    report within the port's report bounds (torch_helpers.report_tolerance)."""
+    reports = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        before = pr.launches
+        argv = [
+            "--fleet", "--device", device, "--config", "examples/data/planar_intrinsics_config.json",
+            "--features", "examples/data/detections_cam0.json", "examples/data/detections_cam1.json",
+            "-o", str(out),
+        ]
+        assert planar_intrinsics.main(argv) == 0
+        if device == "cuda":
+            assert pr.launches == before + 1  # the QA recheck ran the kernel
+        reports.append(json.loads(out.read_text()))
+    assert_reports_match(reports[1], reports[0])

@@ -9,6 +9,9 @@ what shows the per-lane masks freeze a finished lane the way vmap of
 """
 
 import dataclasses
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -160,4 +163,13 @@ def test_options_are_frozen_dataclasses():
     opts = OptimOptions()
     with pytest.raises(dataclasses.FrozenInstanceError):
         opts.epsilon = 1.0  # type: ignore[misc]
-    assert torch.get_default_dtype() == torch.float32  # the port sets no global dtype
+    # the port sets no global dtype. Asked of a fresh interpreter: a test of
+    # the JAX package run earlier in this worker may have set one.
+    code = (
+        "import torch\n"
+        "import calibration_tpu_torch.parallel, calibration_tpu_torch.apps.planar_intrinsics\n"
+        "assert torch.get_default_dtype() == torch.float32, torch.get_default_dtype()\n"
+    )
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -153,7 +153,8 @@ def test_convert_carries_every_option_field():
     j = JIntrOptions(
         core=JOptimOptions(optimizer=JOptimizerType.DENSE_QR, huber_delta=2.5, epsilon=1e-7,
                            max_iterations=17, compute_covariance=False, verbose=True),
-        num_radial=3, optimize_skew=True, fixed_distortion_indices=(2,), fixed_distortion_values=(0.01,),
+        num_radial=3, optimize_skew=True, bounds=JBounds(fx_min=100.0, cy_max=400.0),
+        fixed_distortion_indices=(2,), fixed_distortion_values=(0.01,), mixed_coarse_epsilon=1e-3,
     )
     t = convert.intrinsics_options(j)
     assert t.core.optimizer is OptimizerType.DENSE_QR
@@ -163,6 +164,9 @@ def test_convert_carries_every_option_field():
     assert (t.num_radial, t.optimize_skew, t.fixed_distortion_indices, t.fixed_distortion_values) == (
         3, True, (2,), (0.01,),
     )
+    assert dataclasses.asdict(t.bounds) == dataclasses.asdict(j.bounds)
+    assert t.mixed_coarse_epsilon == 1e-3
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
     assert convert.optim_options(j.core) == t.core
     bounds = JBounds(fx_max=1500.0, skew_min=-0.5)
     assert dataclasses.asdict(convert.calibration_bounds(bounds)) == dataclasses.asdict(bounds)
