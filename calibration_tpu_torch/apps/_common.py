@@ -1,13 +1,25 @@
 """Shared CLI helpers for the example apps.
 
 A copy of ``calibration_tpu/apps/_common.py``, which is JAX-free but cannot be
-imported without importing JAX (``calibration_tpu/__init__.py`` imports it).
+imported without importing JAX (``calibration_tpu/__init__.py`` imports it),
+plus ``resolve_device`` for the port's ``--device`` option.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
+
+import torch
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device an app's ``--device`` names. A CUDA device that is
+    not there is an error, never a silent run on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device '{name}' asked for, but torch.cuda.is_available() is false")
+    return device
 
 
 def load_json_file(path):

@@ -20,16 +20,8 @@ import argparse
 import sys
 from pathlib import Path
 
-import torch
-
 from .. import native
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device '{name}' asked for, but torch.cuda.is_available() is false")
-    return device
+from ._common import resolve_device
 
 
 def main(argv=None) -> int:
@@ -61,7 +53,7 @@ def main(argv=None) -> int:
     from ..pipeline.reports import build_planar_intrinsics_report
 
     try:
-        facade = PlanarIntrinsicCalibrationFacade(_device(args.device))
+        facade = PlanarIntrinsicCalibrationFacade(resolve_device(args.device))
         cfg = load_calibration_config(args.config)
         if cfg is None:
             raise RuntimeError("Failed to load calibration config")

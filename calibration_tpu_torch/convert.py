@@ -16,6 +16,7 @@ import torch
 
 from .models.camera_matrix import CalibrationBounds
 from .optim.core import OptimizerType, OptimOptions
+from .optim.extrinsics import ExtrinsicOptions
 from .optim.intrinsics import IntrinsicsOptimOptions
 
 
@@ -43,6 +44,13 @@ def intrinsics_options(opts) -> IntrinsicsOptimOptions:
     if values["bounds"] is not None:
         values["bounds"] = CalibrationBounds(**values["bounds"])
     return IntrinsicsOptimOptions(**values)
+
+
+def extrinsic_options(opts) -> ExtrinsicOptions:
+    """The reference's ``ExtrinsicOptions`` -> the port's."""
+    values = _known_fields(ExtrinsicOptions, dataclasses.asdict(opts))
+    values["core"] = _optim_options(values["core"])
+    return ExtrinsicOptions(**values)
 
 
 def calibration_bounds(bounds) -> CalibrationBounds | None:

@@ -1,4 +1,5 @@
 from . import (
+    extrinsics_linear,
     homography,
     intrinsics_linear,
     linalg,
@@ -9,6 +10,7 @@ from . import (
 )
 
 __all__ = [
+    "extrinsics_linear",
     "homography",
     "intrinsics_linear",
     "linalg",

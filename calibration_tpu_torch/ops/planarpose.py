@@ -36,12 +36,16 @@ def pose_from_homography_normalized(hmtx):
     return se3.make_se3(rot, h3 / s[..., None])
 
 
-def estimate_planar_pose(obj_xy, img_uv, kmtx, mask=None):
-    """One-shot planar pose from pixel observations and K: DLT on
-    normalized image coords, then decomposition.
-    obj_xy/img_uv: (..., N, 2); kmtx: (..., 5)."""
-    norm_uv = cm.normalize(kmtx[..., None, :], img_uv)
+def estimate_planar_pose_normalized(obj_xy, norm_uv, mask=None):
+    """DLT on already-normalized image coords, then decomposition.
+    obj_xy/norm_uv: (..., N, 2)."""
     return pose_from_homography_normalized(H.estimate_homography_dlt(obj_xy, norm_uv, mask))
+
+
+def estimate_planar_pose(obj_xy, img_uv, kmtx, mask=None):
+    """One-shot planar pose from pixel observations and K.
+    obj_xy/img_uv: (..., N, 2); kmtx: (..., 5)."""
+    return estimate_planar_pose_normalized(obj_xy, cm.normalize(kmtx[..., None, :], img_uv), mask)
 
 
 def pose_from_homography_pixel(kmtx, hmtx):

@@ -1,5 +1,5 @@
 """SO(3)/SE(3) utilities (port of ``calibration_tpu/ops/se3.py``, the part
-the planar-intrinsics slice uses).
+the planar-intrinsics and extrinsics slices use).
 
 Poses are 4x4 homogeneous matrices, rotations 3x3 matrices, quaternions
 (w, x, y, z). Everything broadcasts over leading batch dimensions. The
@@ -92,6 +92,11 @@ def quat_to_rotmat(q):
     )
 
 
+def quat_conj(q):
+    """Quaternion conjugate (w, x, y, z) -> (w, -x, -y, -z)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
 def quat_mul(a, b):
     """Hamilton product of (w, x, y, z) quaternions."""
     aw, ax, ay, az = a.unbind(-1)
@@ -127,3 +132,38 @@ def make_se3(r, t):
     bottom = torch.zeros(batch + (1, 4), dtype=r.dtype, device=r.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_inverse(m):
+    rt = m[..., :3, :3].transpose(-1, -2)
+    return make_se3(rt, -(rt @ m[..., :3, 3:4])[..., 0])
+
+
+def average_isometries(poses, mask=None):
+    """Quaternion sign-aligned average of SE(3) poses over the K axis.
+
+    poses: (..., K, 4, 4); mask: optional (..., K) validity weights.
+    Quaternions are sign-aligned against the first valid pose. A masked-out
+    pose is selected away, not only weighted: it may be NaN (a degenerate
+    view), and NaN * 0 is NaN. No valid pose gives the identity rotation
+    and a zero translation.
+    """
+    q = rotmat_to_quat(poses[..., :3, :3])
+    t = poses[..., :3, 3]
+    if mask is None:
+        mask = torch.ones(poses.shape[:-2], dtype=poses.dtype, device=poses.device)
+    mask = mask.to(poses.dtype)
+    ident = torch.zeros(4, dtype=poses.dtype, device=poses.device)
+    ident[0] = 1.0
+    valid = (mask > 0)[..., None]
+    q = torch.where(valid, q, ident)
+    t = torch.where(valid, t, torch.zeros_like(t))
+    denom = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    ref_idx = torch.argmax(mask, dim=-1)  # the first valid pose
+    q_ref = torch.take_along_dim(q, ref_idx[..., None, None], dim=-2)
+    sgn = torch.where(torch.sum(q * q_ref, dim=-1) < 0, -1.0, 1.0).to(poses.dtype)
+    q_sum = torch.sum(q * (sgn * mask)[..., None], dim=-2)
+    nrm = torch.linalg.norm(q_sum, dim=-1, keepdim=True)
+    q_avg = torch.where(nrm > _EPS, q_sum / torch.clamp(nrm, min=_EPS), ident)
+    t_avg = torch.sum(t * mask[..., None], dim=-2) / denom[..., None]
+    return make_se3(quat_to_rotmat(q_avg), t_avg)

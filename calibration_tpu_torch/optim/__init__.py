@@ -1,5 +1,11 @@
-from . import blocks, core, intrinsics, lm, lm_schur, manifold
+from . import blocks, core, extrinsics, intrinsics, lm, lm_schur, manifold
 from .core import OptimOptions, OptimResult, OptimizerType, TerminationType
+from .extrinsics import (
+    ExtrinsicOptimizationResult,
+    ExtrinsicOptions,
+    optimize_extrinsics,
+    optimize_extrinsics_device,
+)
 from .intrinsics import (
     IntrinsicsOptimizationResult,
     IntrinsicsOptimOptions,
@@ -12,8 +18,10 @@ from .lm_schur import SchurOutput, lm_core_schur, tangent_covariance
 from .manifold import ProductManifold, euclid, quat
 
 __all__ = [
-    "blocks", "core", "intrinsics", "lm", "lm_schur", "manifold",
+    "blocks", "core", "extrinsics", "intrinsics", "lm", "lm_schur", "manifold",
     "OptimOptions", "OptimResult", "OptimizerType", "TerminationType",
+    "ExtrinsicOptions", "ExtrinsicOptimizationResult", "optimize_extrinsics",
+    "optimize_extrinsics_device",
     "IntrinsicsOptimOptions", "IntrinsicsOptimizationResult", "intrinsics_covariance_device",
     "optimize_intrinsics", "optimize_intrinsics_device",
     "LMOutput", "covariance_from_tangent",

@@ -1,0 +1,259 @@
+"""Joint multi-camera extrinsics (+ optional intrinsics) refinement,
+batched over rigs (port of ``calibration_tpu/optim/extrinsics.py`` with the
+Schur solver).
+
+Parameter layout per rig: [intr_0..intr_C, cam_quat_0.., cam_tran_0..,
+view_quat_0.., view_tran_0..], the reference's ExtrinsicBlocks order.
+Gauge: camera 0's pose is frozen when the extrinsics are optimized, target
+pose 0 when the intrinsics are. One Huber block per (view, camera) pair;
+fx, fy get a zero lower bound; skew is frozen unless ``optimize_skew``.
+
+The Schur engine's global block is the C intrinsics plus the C camera
+poses (a manifold: the camera quaternions retract by right-multiplied
+exp), the per-view block the target pose. The Jacobian is the analytic
+pinhole ``_view_residual_jac_pinhole``, which the reference's tests hold
+equal to its default per-camera grouped jacfwd; the grouped jacfwd and the
+dense solver (``solver="dense"``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models import pinhole
+from ..models.registry import PINHOLE
+from ..ops import se3
+from . import blocks, lm, lm_schur
+from .core import OptimOptions, OptimResult, TerminationType, brief_report
+from .manifold import ProductManifold, euclid, quat
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtrinsicOptions:
+    """The reference's ExtrinsicOptions, field for field and in its order."""
+
+    core: OptimOptions = dataclasses.field(default_factory=OptimOptions)
+    optimize_intrinsics: bool = True
+    optimize_skew: bool = False
+    optimize_extrinsics: bool = True
+
+
+def make_manifold(pc: int, c: int, v: int) -> ProductManifold:
+    return ProductManifold(
+        [euclid(pc)] * c + [quat()] * c + [euclid(3)] * c + [quat()] * v + [euclid(3)] * v
+    )
+
+
+def global_manifold(pc: int, c: int) -> ProductManifold:
+    """The Schur global block: C intrinsics, C camera quaternions, C camera
+    translations."""
+    return ProductManifold([euclid(pc)] * c + [quat()] * c + [euclid(3)] * c)
+
+
+def unpack(x, pc, c, v):
+    """(..., C*pc + 7C + 7V) -> (intr (..., C, pc), cam quats (..., C, 4),
+    cam trans (..., C, 3), view quats (..., V, 4), view trans (..., V, 3))."""
+    lead = x.shape[:-1]
+    sizes = [c * pc, 4 * c, 3 * c, 4 * v, 3 * v]
+    shapes = [(c, pc), (c, 4), (c, 3), (v, 4), (v, 3)]
+    return tuple(p.reshape(lead + s) for p, s in zip(torch.split(x, sizes, dim=-1), shapes))
+
+
+def _split_global(xg, pc, c):
+    intr, cq, ct, _, _ = unpack(xg, pc, c, 0)
+    return intr, cq, ct
+
+
+def _rig_points(xg, vq, vt, obj, pc, c):
+    """Camera-frame points (B, V, C, N, 3) of planar target points obj
+    (B, V, C, N, 2), with what the Jacobian reuses."""
+    intr, cq, ct = _split_global(xg, pc, c)
+    cam_rot = se3.quat_to_rotmat(cq)[:, None, :, None]  # (B, 1, C, 1, 3, 3)
+    view_rot = se3.quat_to_rotmat(vq)[:, :, None, None]  # (B, V, 1, 1, 3, 3)
+    # rig-frame points R_v [x, y, 0] + t_v
+    p_r = view_rot[..., 0] * obj[..., 0:1] + view_rot[..., 1] * obj[..., 1:2] + vt[:, :, None, None, :]
+    pc3 = torch.sum(cam_rot * p_r[..., None, :], dim=-1) + ct[:, None, :, None, :]
+    return intr, cam_rot, view_rot, p_r, pc3
+
+
+def _view_residual(xg, vq, vt, obj, uv, mask, pc, c):
+    """Per-view residuals (B, V, C*N*2): each target view seen by all C
+    cameras, rows ordered (camera, point, u/v). xg: (B, C*pc + 7C);
+    vq/vt: (B, V, 4)/(B, V, 3); obj/uv: (B, V, C, N, 2); mask (B, V, C, N)."""
+    intr, _, _, _, pc3 = _rig_points(xg, vq, vt, obj, pc, c)
+    uv_hat = PINHOLE.project(intr[:, None, :, None, :], pc3)
+    r = (uv_hat - uv) * mask[..., None]
+    return r.reshape(r.shape[:2] + (-1,))
+
+
+def _block_diag_cols(j, c):
+    """Per-camera columns (..., C, N, 2, k) -> (..., C, N, 2, C*k): camera
+    c's rows touch only camera c's columns."""
+    eye = torch.eye(c, dtype=j.dtype, device=j.device)
+    out = j[..., None, :] * eye[:, None, None, :, None]
+    return out.reshape(j.shape[:-1] + (c * j.shape[-1],))
+
+
+def _view_residual_jac_pinhole(xg, vq, vt, obj, uv, mask, pc, c):
+    """Analytic tangent Jacobian of ``_view_residual``: (B, V, C*N*2,
+    C*pc + 6C + 6), columns [intr_0..intr_C, omega_cam x C, t_cam x C,
+    omega_v (3), t_v (3)], the global manifold's tangent layout followed by
+    the per-view pose.
+
+    Chain rule of project(intr_c, R_c (R_v exp(w_v^) p + t_v) + t_c) with
+    right-multiplied quaternion retractions on both poses: for a row vector
+    a, a (-R [p]_x) = (p x (a R)) row-wise.
+    """
+    intr, cam_rot, view_rot, p_r, pc3 = _rig_points(xg, vq, vt, obj, pc, c)
+    j_intr, h = pinhole.project_point_jacobians(intr[:, None], pc3)  # (B, V, C, N, 2, pc), (.., 2, 3)
+    h_rc = h @ cam_rot  # d/d p_r, also d/d t_v
+    pts = torch.cat([obj, torch.zeros_like(obj[..., :1])], dim=-1)
+    j_wc = torch.linalg.cross(p_r[..., None, :], h_rc, dim=-1)
+    j_wv = torch.linalg.cross(pts[..., None, :], h_rc @ view_rot, dim=-1)
+    jac = torch.cat(
+        [
+            _block_diag_cols(j_intr, c),
+            _block_diag_cols(j_wc, c),
+            _block_diag_cols(h, c),
+            j_wv,
+            h_rc,
+        ],
+        dim=-1,
+    )
+    jac = jac * mask[..., None, None]
+    return jac.reshape(jac.shape[:2] + (-1, jac.shape[-1]))
+
+
+def _residual_fns(pc, c):
+    res = lambda xg, q, t, o, u, m: _view_residual(xg, q, t, o, u, m, pc, c)  # noqa: E731
+    jac = lambda xg, q, t, o, u, m: _view_residual_jac_pinhole(xg, q, t, o, u, m, pc, c)  # noqa: E731
+    return res, jac
+
+
+def _free_mask(opts: ExtrinsicOptions, pc, c, v):
+    """(C*pc + 7C + 7V,) ambient free mask with the reference's gauge."""
+    free = np.ones((c * pc + 7 * c + 7 * v,), bool)
+    o_int, o_cq, o_ct = 0, c * pc, c * pc + 4 * c
+    o_vq, o_vt = c * pc + 7 * c, c * pc + 7 * c + 4 * v
+    if not opts.optimize_intrinsics:
+        free[o_int : o_int + c * pc] = False
+    else:  # gauge: first target pose constant
+        free[o_vq : o_vq + 4] = False
+        free[o_vt : o_vt + 3] = False
+    if not opts.optimize_extrinsics:
+        free[o_cq:o_vq] = False
+    else:  # gauge: camera 0 pose constant
+        free[o_cq : o_cq + 4] = False
+        free[o_ct : o_ct + 3] = False
+    if not opts.optimize_skew:
+        free[o_int + np.arange(c) * pc + PINHOLE.idx_skew] = False
+    return free
+
+
+def _check_solver(solver: str) -> None:
+    if solver == "dense":
+        raise NotImplementedError("solver='dense' (the dense lm_core engine) is not ported yet")
+    if solver != "schur":
+        raise ValueError(f"unknown solver '{solver}'")
+
+
+def optimize_extrinsics_device(
+    obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=None, opts=None, solver="schur"
+):
+    """Refine B rigs on the tensors' device. obj_xy/img_uv: (B, V, C, N, 2);
+    init_intrs: (B, C, pc); init_c_se3_r: (B, C, 4, 4); init_r_se3_t:
+    (B, V, 4, 4); mask: (B, V, C, N).
+
+    Returns (LMOutput, intr (B, C, pc), c_se3_r (B, C, 4, 4), r_se3_t
+    (B, V, 4, 4), cov (B, n, n), cov_ok (B,)) with n = C*pc + 7C + 7V.
+    """
+    _check_solver(solver)
+    opts = opts or ExtrinsicOptions()
+    b, v, c = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
+    pc = PINHOLE.param_count
+    dtype, device = obj_xy.dtype, obj_xy.device
+    mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=device) if mask is None else mask.to(dtype)
+
+    cq, ct = blocks.poses_to_quat_tran(init_c_se3_r)
+    vq, vt = blocks.poses_to_quat_tran(init_r_se3_t)
+    xg0 = torch.cat([init_intrs.reshape(b, -1), cq.reshape(b, -1), ct.reshape(b, -1)], dim=-1)
+    ga = xg0.shape[-1]
+    manifold = make_manifold(pc, c, v)
+    g_manifold = global_manifold(pc, c)
+
+    free_np = _free_mask(opts, pc, c, v)
+    free = torch.as_tensor(free_np, device=device)
+    lower = np.full((ga,), -np.inf)
+    lower[np.arange(c) * pc + PINHOLE.idx_fx] = 0.0
+    lower[np.arange(c) * pc + PINHOLE.idx_fy] = 0.0
+    # per-view pose freezing is the target-0 gauge
+    view_free = torch.as_tensor(free_np[ga : ga + 4 * v].reshape(v, 4)[:, 0], dtype=dtype, device=device)
+
+    res_fn, jac_fn = _residual_fns(pc, c)
+    view_data = (obj_xy, img_uv, mask)
+    sout = lm_schur.lm_core_schur(
+        res_fn, jac_fn, xg0, vq, vt, view_data, options=opts.core, g_free=free[:ga],
+        view_valid=view_free.expand(b, v),
+        lower_g=torch.as_tensor(lower, dtype=dtype, device=device), g_manifold=g_manifold, blocks_per_view=c,
+    )
+    out = sout.as_lm_output(blocks.pack_intr_quats_trans)
+    n_amb = manifold.ambient_dim
+    if opts.core.compute_covariance:
+        c_t, _ = lm_schur.tangent_covariance(
+            res_fn, jac_fn, sout.xg, sout.quats, sout.trans, view_data, g_manifold=g_manifold,
+            tan_free=manifold.ambient_to_tangent_mask(free).to(dtype),
+            huber_delta=opts.core.huber_delta, blocks_per_view=c,
+        )
+        cov, cov_ok = lm.covariance_from_tangent(c_t, out.x, manifold)
+    else:
+        cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=device)
+
+    intr, cqf, ctf = _split_global(sout.xg, pc, c)
+    c_se3_r = blocks.quat_tran_to_poses(cqf, ctf)
+    r_se3_t = blocks.quat_tran_to_poses(sout.quats, sout.trans)
+    return out, intr, c_se3_r, r_se3_t, cov, cov_ok
+
+
+@dataclasses.dataclass
+class ExtrinsicOptimizationResult:
+    core: OptimResult
+    cameras: np.ndarray  # (C, pc)
+    c_se3_r: np.ndarray  # (C, 4, 4)
+    r_se3_t: np.ndarray  # (V, 4, 4)
+
+
+def optimize_extrinsics(
+    obj_xy, img_uv, init_cameras, init_c_se3_r, init_r_se3_t, mask=None, opts=None, solver="schur"
+) -> ExtrinsicOptimizationResult:
+    """Host-facing wrapper for ONE rig, a B = 1 call of
+    ``optimize_extrinsics_device``. obj_xy/img_uv: (V, C, N, 2);
+    init_cameras: (C, pc); init_c_se3_r: (C, 4, 4); init_r_se3_t:
+    (V, 4, 4); mask: (V, C, N); all tensors on one device."""
+    opts = opts or ExtrinsicOptions()
+    if init_cameras.shape[0] != init_c_se3_r.shape[0]:
+        raise ValueError("Incompatible pose vector sizes for joint optimization")
+    out, intr, c_se3_r, r_se3_t, cov, cov_ok = optimize_extrinsics_device(
+        obj_xy[None], img_uv[None], init_cameras[None], init_c_se3_r[None], init_r_se3_t[None],
+        mask=None if mask is None else mask[None], opts=opts, solver=solver,
+    )
+    core = OptimResult(
+        success=bool(out.success[0]),
+        covariance=(
+            cov[0].cpu().numpy() if (opts.core.compute_covariance and bool(cov_ok[0])) else None
+        ),
+        final_cost=float(out.cost[0]),
+        iterations=int(out.iterations[0]),
+        termination=TerminationType(int(out.termination[0])),
+        initial_cost=float(out.initial_cost[0]),
+    )
+    core.report = brief_report(core)
+    return ExtrinsicOptimizationResult(
+        core=core,
+        cameras=intr[0].cpu().numpy(),
+        c_se3_r=c_se3_r[0].cpu().numpy(),
+        r_se3_t=r_se3_t[0].cpu().numpy(),
+    )

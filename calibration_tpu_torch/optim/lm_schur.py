@@ -6,10 +6,12 @@ and that view's 6-dof pose, so the damped, Jacobi-scaled normal equations
 are solved by exact block elimination: batched 6x6 Cholesky inverses and
 one pg x pg Schur solve per problem.
 
-Same semantics as the reference: Huber IRLS per view (one loss block per
-view; the reference's ``blocks_per_view`` for rigs is not ported yet), Nielsen
-mu-updates, ftol/gtol/xtol = OptimOptions.epsilon, lower bounds on the global
-block by projection, frozen coordinates through free masks, and the
+Same semantics as the reference: Huber IRLS over ``blocks_per_view`` loss
+blocks per view (one per view for a camera, one per (view, camera) pair for
+a rig), Nielsen mu-updates, ftol/gtol/xtol = OptimOptions.epsilon, lower
+bounds on the ambient global block by projection, a Euclidean or
+manifold-valued global block (``g_manifold``: a rig's intrinsics and camera
+quaternion poses), frozen coordinates through free masks, and the
 linearization cached across rejected trials (one Jacobian per accepted
 step; a rejected trial re-solves the cached system with a larger mu).
 
@@ -63,10 +65,13 @@ def _retract_views(quats, trans, dv):
     return qn, trans + dv[..., 3:]
 
 
-def _huber(r, huber):
-    """Huber IRLS row weights (B, V, m) and robust cost (B,), one loss block
-    per view (r: (B, V, m))."""
-    s = torch.sum(r * r, dim=-1)  # (B, V)
+def _huber(r, huber, blocks_per_view=1):
+    """Huber IRLS row weights (B, V, m) and robust cost (B,) for r
+    (B, V, m). Loss blocks are ``blocks_per_view`` equal runs of each
+    view's m residuals."""
+    b, v, m = r.shape
+    run = m // blocks_per_view
+    s = torch.sum((r * r).reshape(b, v * blocks_per_view, run), dim=-1)  # (B, V * blocks)
     if huber <= 0:
         return torch.ones_like(r), 0.5 * torch.sum(s, dim=-1)
     d2 = huber * huber
@@ -74,7 +79,11 @@ def _huber(r, huber):
     sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
     w = torch.where(out, huber / sqrt_s, torch.ones_like(s))
     rho = torch.where(out, 2.0 * huber * sqrt_s - d2, s)
-    return w[..., None].expand(r.shape), 0.5 * torch.sum(rho, dim=-1)
+    return w[..., None].expand(b, v * blocks_per_view, run).reshape(r.shape), 0.5 * torch.sum(rho, dim=-1)
+
+
+def _global_tangent_dim(xg, g_manifold):
+    return xg.shape[-1] if g_manifold is None else g_manifold.tangent_dim
 
 
 def tangent_covariance(
@@ -85,8 +94,10 @@ def tangent_covariance(
     trans,
     view_data,
     *,
+    g_manifold=None,
     tan_free=None,
     huber_delta: float = 0.0,
+    blocks_per_view: int = 1,
 ):
     """Tangent-space covariance (J^T J)^-1 at a solution by exact block
     inversion of the separable structure, for a batch of problems.
@@ -96,18 +107,21 @@ def tangent_covariance(
       C_gg = S^-1,  C_gv = -S^-1 W_v V_v^-1,
       C_vivj = delta_ij V_i^-1 + V_i^-1 W_i^T S^-1 W_j V_j^-1.
 
-    Huber rows are re-weighted by sqrt(rho'). ``tan_free`` is the
+    Huber rows are re-weighted by sqrt(rho') per loss block
+    (``blocks_per_view`` per view). pg is the global block's tangent
+    dimension (``g_manifold.tangent_dim`` when given). ``tan_free`` is the
     (B, pg + 6V) tangent free-mask in the manifold layout
     [pg | 3V rot | 3V tra]; frozen dims get a unit diagonal before inversion
     and zeroed rows/cols after. Returns (c_t (B, pg+6V, pg+6V), ok (B,)).
     """
-    b, pg = xg.shape
+    b = xg.shape[0]
+    pg = _global_tangent_dim(xg, g_manifold)
     v = quats.shape[-2]
     dtype, device = xg.dtype, xg.device
     r = residual_fn(xg, quats, trans, *view_data)  # (B, V, m)
     jac = jac_fn(xg, quats, trans, *view_data)  # (B, V, m, pg + 6)
     if huber_delta > 0:
-        w, _ = _huber(r, huber_delta)
+        w, _ = _huber(r, huber_delta, blocks_per_view)
         jac = jac * torch.sqrt(w)[..., None]
 
     if tan_free is not None:
@@ -172,6 +186,8 @@ def lm_core_schur(
     g_free=None,
     view_valid=None,
     lower_g=None,
+    g_manifold=None,
+    blocks_per_view: int = 1,
 ) -> SchurOutput:
     """Minimize 0.5 * sum_v rho(|r_v|^2) over (global, per-view pose) blocks
     for a batch of B independent problems.
@@ -180,37 +196,54 @@ def lm_core_schur(
       residual_fn: (xg (B, pg), quats (B, V, 4), trans (B, V, 3),
         *view_data) -> (B, V, m) residuals, masked rows zeroed.
       jac_fn: same arguments -> (B, V, m, pg + 6) tangent Jacobian of the
-        retracted residual at zero tangent, columns [global, rotation
-        omega (3), translation (3)]; the rotation retraction is the right
-        multiplied quaternion exp. The global block is Euclidean.
-      xg0, quats0, trans0: initial global and per-view pose blocks.
+        retracted residual at zero tangent, columns [global tangent,
+        rotation omega (3), translation (3)]; the rotation retraction is the
+        right multiplied quaternion exp, and the global one
+        ``g_manifold.retract`` (or addition).
+      xg0, quats0, trans0: initial global (ambient, (B, ga)) and per-view
+        pose blocks.
       view_data: tuple of (B, V, ...) tensors passed to both functions.
-      g_free: optional (pg,) or (B, pg) mask of free global coordinates.
-      view_valid: optional (B, V); invalid views get frozen pose blocks.
-      lower_g: optional (pg,) or (B, pg) lower bounds on the global block.
+      g_free: optional (ga,) or (B, ga) ambient mask of free global
+        coordinates, mapped to tangent dims through ``g_manifold``.
+      view_valid: optional (B, V); invalid views get frozen pose blocks
+        (their residuals stay in the cost: that is the caller's mask).
+      lower_g: optional (ga,) or (B, ga) lower bounds on the ambient global
+        block.
+      g_manifold: optional ProductManifold of the global block; None means
+        Euclidean (pg = ga).
+      blocks_per_view: Huber loss blocks per view (C for a C-camera rig).
     """
     eps = options.epsilon
     huber = options.huber_delta
     max_it = options.max_iterations
     dtype, device = xg0.dtype, xg0.device
-    b, pg = xg0.shape
+    b = xg0.shape[0]
+    pg = _global_tangent_dim(xg0, g_manifold)
     v = quats0.shape[-2]
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    gmask = ones(b, pg) if g_free is None else g_free.to(dtype).expand(b, pg)
+    if g_free is None:
+        gmask = ones(b, pg)
+    elif g_manifold is not None:
+        gmask = g_manifold.ambient_to_tangent_mask(g_free.bool()).to(dtype).expand(b, pg)
+    else:
+        gmask = g_free.to(dtype).expand(b, pg)
     vmask = ones(b, v) if view_valid is None else view_valid.to(dtype)
     vmask6 = vmask[..., None].expand(b, v, 6)
 
     def clip_g(xg):
         return xg if lower_g is None else torch.maximum(xg, lower_g.to(dtype))
 
+    def g_retract(xg, dg):
+        return xg + dg if g_manifold is None else g_manifold.retract(xg, dg)
+
     def residuals(xg, quats, trans):
         return residual_fn(xg, quats, trans, *view_data)
 
     def weights(r):
-        return _huber(r, huber)
+        return _huber(r, huber, blocks_per_view)
 
     xg = clip_g(xg0)
     quats, trans = quats0, trans0
@@ -262,6 +295,7 @@ def lm_core_schur(
         gv_s = dv * gv
         diag_gmask = torch.diag_embed(gmask)
         diag_vmask6 = torch.diag_embed(vmask6)
+        # over the ambient blocks, a rig's camera quaternions included
         x_norm = torch.sqrt(
             torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
         )
@@ -295,7 +329,7 @@ def lm_core_schur(
             step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
             xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
 
-            xg_new = clip_g(xg + delta_g)
+            xg_new = clip_g(g_retract(xg, delta_g))
             q_new, tr_new = _retract_views(quats, trans, delta_v)
             r_new = residuals(xg_new, q_new, tr_new)
             _, cost_new = weights(r_new)

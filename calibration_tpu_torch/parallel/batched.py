@@ -1,5 +1,5 @@
-"""Batched planar-intrinsics entry points (port of the intrinsics part of
-``calibration_tpu/parallel/batched.py``).
+"""Batched planar-intrinsics and extrinsics entry points (port of the
+intrinsics and extrinsics parts of ``calibration_tpu/parallel/batched.py``).
 
 The reference lifts single-problem cores over a problem axis with
 ``jax.vmap`` inside one jitted program. Here every core already takes a
@@ -14,9 +14,10 @@ from typing import Optional
 
 import torch
 
-from ..models.registry import PINHOLE
+from ..models.registry import PINHOLE, get_model
 from ..ops import intrinsics_linear, planarpose
 from ..ops.projection_residuals import projection_residuals_f32
+from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
 from ..optim.intrinsics import (
     IntrinsicsOptimOptions,
     intrinsics_covariance_device,
@@ -29,16 +30,24 @@ from ..optim.lm import LMOutput
 # iterations, then continue only the lanes that have not converged.
 TWO_PHASE_CAP_A = 6
 TWO_PHASE_MIN_BATCH = 64
+# The reference's stereo schedule (its CALIB_EXTR_PHASE_CAP override is not
+# ported): the full batch up to EXTRINSICS_PHASE_CAP iterations, then up to
+# EXTRINSICS_PHASE_MID more for the unconverged lanes, then the rest.
+EXTRINSICS_PHASE_CAP = 5
+EXTRINSICS_PHASE_MID = 8
 
 
-def phase_schedule(opts: IntrinsicsOptimOptions) -> tuple:
-    """Iteration budget of each phase: the full-width cap, then the rest of
-    ``opts.core.max_iterations`` for the unconverged lanes. The budget is
-    never exceeded (the reference adds a 1-iteration phase when the budget
-    is at or below the cap)."""
-    total = opts.core.max_iterations
-    cap = min(TWO_PHASE_CAP_A, total)
-    return (cap, total - cap) if total > cap else (cap,)
+def phase_schedule(total: int, caps: tuple) -> tuple:
+    """Iteration budget of each phase: ``caps`` in turn, then the rest of
+    the ``total`` budget; empty phases after the first are dropped. The
+    budget is never exceeded (the reference adds a 1-iteration phase when
+    the budget is at or below its first cap)."""
+    phases = []
+    for cap in caps + (total,):
+        iters = min(cap, total - sum(phases))
+        if iters > 0 or not phases:
+            phases.append(iters)
+    return tuple(phases)
 
 
 def _merge_phase(lm_a: LMOutput, sol_a, out_b, idx):
@@ -109,7 +118,7 @@ def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase):
         )
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
         _phased_solve(opts), (obj, uv, mask, view_valid), (init_intr, init_poses),
-        phase_schedule(opts),
+        phase_schedule(opts.core.max_iterations, (TWO_PHASE_CAP_A,)),
     )
     b, v = obj.shape[0], obj.shape[1]
     if opts.core.compute_covariance:
@@ -236,3 +245,63 @@ def reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask=None):
         mask_r,
     )
     return _rms_from_residuals(res, mask_r).reshape(b, v)
+
+
+def _extrinsics_phased_solve(opts: ExtrinsicOptions, solver: str):
+    def solve(iters, obj, uv, mask, intrs, c_se3_r, r_se3_t):
+        core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
+        return optimize_extrinsics_device(
+            obj, uv, intrs, c_se3_r, r_se3_t, mask=mask,
+            opts=dataclasses.replace(opts, core=core), solver=solver,
+        )
+
+    return solve
+
+
+def extrinsics_batch(
+    obj_xy,
+    img_uv,
+    init_intrs,
+    init_c_se3_r,
+    init_r_se3_t,
+    mask=None,
+    opts: Optional[ExtrinsicOptions] = None,
+    model_name: str = "pinhole_brown_conrady",
+    solver: str = "schur",
+    two_phase: bool | None = None,
+):
+    """Joint multi-camera extrinsics refinement for a fleet of B rigs (the
+    path the stereo benchmark times).
+
+    obj_xy/img_uv: (B, V, C, N, 2); init_intrs: (B, C, pc); init_c_se3_r:
+    (B, C, 4, 4); init_r_se3_t: (B, V, 4, 4); mask: (B, V, C, N). Returns
+    the ``optimize_extrinsics_device`` tuple.
+
+    two_phase: run the ``phase_schedule`` of EXTRINSICS_PHASE_CAP and
+    EXTRINSICS_PHASE_MID, each phase restarting the unconverged lanes (see
+    ``_phased_lm``); None -> on for B >= TWO_PHASE_MIN_BATCH. Covariance
+    forces one phase, as in the reference:
+    the phase boundaries restart the damping, so a phased solve is a
+    different LM path, and the reference computes covariance only on the
+    single-phase one. Only the pinhole model is ported.
+    """
+    opts = opts or ExtrinsicOptions()
+    get_model(model_name)
+    dtype = obj_xy.dtype
+    mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
+    b, v, c = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
+    if two_phase is None:
+        two_phase = b >= TWO_PHASE_MIN_BATCH
+    if not two_phase or opts.core.compute_covariance:
+        return optimize_extrinsics_device(
+            obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=mask, opts=opts, solver=solver
+        )
+    lm_m, (intr_m, c_m, r_m) = _phased_lm(
+        _extrinsics_phased_solve(opts, solver), (obj_xy, img_uv, mask),
+        (init_intrs, init_c_se3_r, init_r_se3_t),
+        phase_schedule(opts.core.max_iterations, (EXTRINSICS_PHASE_CAP, EXTRINSICS_PHASE_MID)),
+    )
+    n_amb = c * PINHOLE.param_count + 7 * c + 7 * v
+    cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
+    cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
+    return lm_m, intr_m, c_m, r_m, cov, cov_ok

@@ -1,4 +1,4 @@
-from . import dataset, loaders, pipeline, planar_utils, reports, stages
+from . import dataset, fleet, loaders, pipeline, planar_utils, reports, stages
 from .dataset import (
     CalibrationDataset,
     PlanarDetections,
@@ -15,4 +15,4 @@ from .pipeline import (
     PipelineStageResult,
     StageDecorator,
 )
-from .stages import IntrinsicStage
+from .stages import IntrinsicStage, StereoCalibrationStage

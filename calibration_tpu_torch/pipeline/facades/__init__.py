@@ -1,4 +1,16 @@
-from . import intrinsics
+from . import extrinsics, intrinsics
+from .extrinsics import (
+    MultiCameraCalibrationFacade,
+    MultiCameraCalibrationRunResult,
+    MultiCameraRigConfig,
+    MultiCameraViewSelection,
+    StereoCalibrationConfig,
+    StereoCalibrationFacade,
+    StereoCalibrationRunResult,
+    StereoCalibrationViewSummary,
+    StereoPairConfig,
+    StereoViewSelection,
+)
 from .intrinsics import (
     CameraConfig,
     IntrinsicCalibrationConfig,

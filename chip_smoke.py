@@ -7,7 +7,8 @@
    card's name and power limit.
 2. Builds the CUDA kernels of ``calibration_tpu_torch/csrc`` with nvcc.
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shape and at a ragged one, and times both (CUDA events).
+   shapes the facade (2560 x 88) and the pipeline's intrinsics stage
+   (1280 x 88) give it and at a ragged one, and times both (CUDA events).
 4. Drives the main path once: ``intrinsics_facade_batch`` on the bench.py
    problem set (B = 256 cameras, 10 views of an 8x11 grid, noise 0.2 px,
    seed 7, max_iterations 40, epsilon 1e-9, covariance on), checks the
@@ -22,6 +23,23 @@
    and every clean point kept, every camera converged, mean RMS in
    [0.15, 0.25] px, no QA warning), that the kernel and the prefilter ran
    on the card, and card/CPU parity of the app on the first 8 sensors.
+7. Solves the stereo benchmark set (BASELINE config 3: B = 128 two-camera
+   rigs, 8 views of a 5x7 grid at 0.05 m, noise 0.2 px, seed 13,
+   max_iterations 50, covariance off, so the phased schedule runs) through
+   ``extrinsics_batch`` on the card: every lane converged, camera 1's pose
+   within POSE_TOL_M / POSE_TOL_DEG of the truth, card vs CPU final cost
+   within 1e-7 relative on the first 8 rigs (same schedule), and a warm
+   call timed in rigs/s.
+8. Drives the intrinsic_extrinsic_pipeline app (``--device cuda``) on 64
+   stereo rigs written as 128 detections files (10 views x 88 points, 0.2
+   px noise), with 64 stereo pairs and 64 two-camera multicam rigs: a first
+   and a warm call, each timed by layer (ingest, intrinsics stage, stereo
+   stage, multicam, writing). It checks exit 0, every pair ``ok``, every
+   rig converged, camera 1's pose within the pose bound for every pair and
+   rig, that the intrinsics stage launched the kernel and that its QA
+   recheck agrees with the f64 view errors on every camera, and card/CPU parity
+   of the artifacts on the first 4 rigs (``tests/torch_helpers``' report
+   bounds).
 
 Earlier lines report each phase; the line before the last is the kernels
 JSON record, and the last line is the device JSON record. Any failed check
@@ -44,14 +62,15 @@ import numpy as np
 import torch
 
 from calibration_tpu_torch import native
-from calibration_tpu_torch.apps import planar_intrinsics
+from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
 from calibration_tpu_torch.kernels import _build
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac
-from calibration_tpu_torch.optim import IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import batched, intrinsics_facade_batch
-from calibration_tpu_torch.pipeline import loaders, reports
+from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.parallel import batched, extrinsics_batch, intrinsics_facade_batch
+from calibration_tpu_torch.pipeline import loaders, reports, stages
+from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
 
 KERNEL_ATOL_PX = 5e-3  # f32 rounding of ~640 px values; the JAX kernel's gate
@@ -61,6 +80,16 @@ CAMERA_PARITY_RTOL = 1e-6  # card vs CPU refined camera, app reports
 FLEET = 256  # sensors of the app phase
 OUTLIERS = 4  # displaced points per view, 20-40 px
 PARITY_SENSORS = 8
+STEREO_RIGS = 128  # config 3's batch
+PIPELINE_RIGS = 64  # the pipeline fleet size of the JAX package's bench_all.py
+PIPELINE_PARITY_RIGS = 4
+# camera 1's pose vs the truth, on every rig of both phases. At 0.2 px
+# noise, with both cameras' intrinsics free, the JAX reference's worst rig
+# (CPU, f64) is 11.1 mm / 1.07 deg on the 128-rig stereo set and 14.9 mm /
+# 1.58 deg on the 64-rig pipeline, and the port's equals it (noise-free
+# data gives 1e-14 m): the bound is about 1.3x that.
+POSE_TOL_M = 0.02
+POSE_TOL_DEG = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -107,6 +136,38 @@ def _exp_so3(w):
     return np.eye(3) + np.sin(th)[..., None, None] * k + (1 - np.cos(th))[..., None, None] * (k @ k)
 
 
+def _pose(w, t):
+    m = np.eye(4)
+    m[:3, :3] = _exp_so3(np.asarray(w, float))
+    m[:3, 3] = t
+    return m
+
+
+def _render(intr, c_se3_t, obj, noise, rng):
+    """Pixels (V, N, 2) of planar points obj (N, 2) seen from poses
+    c_se3_t (V, 4, 4), through the port's pinhole model on the CPU in
+    float64, plus Gaussian noise."""
+    obj3 = np.concatenate([obj, np.zeros((obj.shape[0], 1))], -1)
+    pc = np.einsum("vij,nj->vni", c_se3_t[:, :3, :3], obj3) + c_se3_t[:, None, :3, 3]
+    uv = pinhole.project(torch.as_tensor(intr), torch.as_tensor(pc)).numpy()
+    return uv + rng.normal(0, noise, uv.shape) if noise > 0 else uv
+
+
+def _grid(rows, cols, pitch):
+    ys, xs = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    obj = np.stack([xs.ravel() * pitch, ys.ravel() * pitch], -1)
+    return obj - obj.mean(0)
+
+
+def pose_errors(c_se3_r, truth):
+    """(max translation error m, max rotation error deg) of camera poses
+    (..., 4, 4) against the truth."""
+    tra = float(np.abs(c_se3_r[..., :3, 3] - truth[..., :3, 3]).max())
+    rel = np.swapaxes(c_se3_r[..., :3, :3], -1, -2) @ truth[..., :3, :3]
+    cos = np.clip((np.trace(rel, axis1=-2, axis2=-1) - 1.0) / 2.0, -1.0, 1.0)
+    return tra, float(np.degrees(np.arccos(cos)).max())
+
+
 def residual_inputs(r, n, seed):
     """Random rows of the kernel's inputs (the JAX kernel tests' recipe)."""
     rng = np.random.default_rng(seed)
@@ -121,10 +182,11 @@ def residual_inputs(r, n, seed):
 
 
 def kernel_phase(dev):
-    """Kernel vs plain at the main-path shape and a ragged shape."""
+    """Kernel vs plain at the shapes the facade and the pipeline's
+    intrinsics stage give it, and at a ragged shape; timed at the first."""
     worst = 0.0
     timing = None
-    for r, n, seed in ((2560, 88, 11), (19, 150, 5)):
+    for r, n, seed in ((2560, 88, 11), (2 * PIPELINE_RIGS * 10, 88, 13), (19, 150, 5)):
         arrays = residual_inputs(r, n, seed)
         f32 = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
         f64 = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in arrays]
@@ -169,6 +231,73 @@ def make_problems(batch, views=10, rows=8, cols=11, noise=0.2, seed=7):
     uv = pinhole.project(torch.as_tensor(intr), torch.as_tensor(pts_c)).numpy()
     uv = uv + rng.normal(0, noise, uv.shape)
     return np.tile(obj[None, None], (batch, views, 1, 1)), uv, intr
+
+
+def stereo_problems(batch, views=8, rows=5, cols=7, noise=0.2, seed=13):
+    """The JAX package's stereo benchmark set (its
+    benchmarks/problems.py::stereo_problems, BASELINE config 3): B
+    two-camera rigs, camera 1 offset per rig, views on a circle, shared
+    perturbed inits. Returns a dict of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    obj = _grid(rows, cols, 0.05)
+    n = obj.shape[0]
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    rel_gt = np.stack([_pose([0.02, -0.3 - 0.001 * i, 0.01], [-0.2 - 1e-4 * i, 0.01, 0.015]) for i in range(batch)])
+    uv = np.zeros((batch, views, 2, n, 2))
+    rts = np.zeros((batch, views, 4, 4))
+    for i in range(batch):
+        ang = 2 * np.pi * np.arange(views) / views + 0.03 * i
+        rts[i] = np.stack([
+            _pose([0.3 * np.cos(a), 0.3 * np.sin(a), 0.1 * np.sin(2 * a)],
+                  [0.06 * np.cos(a), 0.06 * np.sin(a), 1.0 + 0.08 * np.sin(a)])
+            for a in ang
+        ])
+        uv[i, :, 0] = _render(intr, rts[i], obj, noise, rng)
+        uv[i, :, 1] = _render(intr, rel_gt[i] @ rts[i], obj, noise, rng)
+    dp = _pose([0.004, -0.003, 0.002], [0.003, -0.002, 0.001])
+    c0 = np.stack([np.stack([np.eye(4), rel_gt[i] @ dp]) for i in range(batch)])
+    return dict(
+        obj=np.tile(obj[None, None, None], (batch, views, 2, 1, 1)), uv=uv,
+        intr0=np.tile(intr[None, None], (batch, 2, 1)), c0=c0, r0=rts.copy(), rel_gt=rel_gt,
+    )
+
+
+STEREO_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
+
+
+def check_stereo(out, rel_gt):
+    lm, _, c_se3_r, _, _, _ = out
+    b = rel_gt.shape[0]
+    check(bool(lm.success.all()), f"all {b} rigs converged")
+    tra, rot = pose_errors(c_se3_r[:, 1].cpu().numpy(), rel_gt)
+    print(f"[smoke] stereo B={b}: camera 1 vs truth max {tra!r} m, {rot!r} deg; iterations "
+          f"{np.bincount(lm.iterations.cpu().numpy()).nonzero()[0].tolist()}")
+    check(tra <= POSE_TOL_M and rot <= POSE_TOL_DEG,
+          f"camera 1 within {POSE_TOL_M} m and {POSE_TOL_DEG} deg of the truth on every rig")
+
+
+def stereo_phase(dev, card):
+    """Config 3 through extrinsics_batch on the card (phased, B >= 64),
+    then the first 8 rigs on the CPU on the same schedule."""
+    p = stereo_problems(STEREO_RIGS)
+    keys = ("obj", "uv", "intr0", "c0", "r0")
+    args = [torch.as_tensor(p[k], device=dev) for k in keys]
+    t0 = time.perf_counter()
+    out = extrinsics_batch(*args, opts=STEREO_OPTS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check_stereo(out, p["rel_gt"])
+    t0 = time.perf_counter()
+    extrinsics_batch(*args, opts=STEREO_OPTS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"[smoke] stereo B={STEREO_RIGS}: first call {first_s!r} s, warm call {warm_s!r} s = "
+          f"{STEREO_RIGS / warm_s!r} rigs/s on {card}")
+    k = 8
+    cpu = extrinsics_batch(*(torch.as_tensor(p[key][:k]) for key in keys), opts=STEREO_OPTS, two_phase=True)
+    rel = float(((out[0].cost[:k].cpu() - cpu[0].cost).abs() / cpu[0].cost.abs()).max())
+    print(f"[smoke] stereo card vs CPU final cost, first {k} rigs: max rel diff {rel!r}")
+    check(rel <= COST_PARITY_RTOL, f"stereo card/CPU cost parity within {COST_PARITY_RTOL} relative")
 
 
 def detections_payload(sensor_id, obj, uv):
@@ -238,20 +367,29 @@ def write_config(directory, b) -> str:
     return str(path)
 
 
+APP_LAYERS = (
+    (loaders, "read_detections", "ingest"),
+    (facade_mod.PlanarIntrinsicCalibrationFacade, "_prefilter", "prefilter"),
+    (facade_mod, "intrinsics_facade_batch", "solve"),
+    (batched, "reprojection_rms_batch", "qa_kernel"),
+    (reports, "build_planar_intrinsics_report", "report"),
+    (native, "dumps_fast", "report"),
+)
+PIPELINE_LAYERS = (
+    (loaders.JsonPlanarDatasetLoader, "load", "ingest"),
+    (stages.IntrinsicStage, "run", "intrinsics"),
+    (stages.StereoCalibrationStage, "run", "stereo"),
+    (extrinsics_facade_mod.MultiCameraCalibrationFacade, "calibrate_many", "multicam"),
+    (native, "dumps_fast", "writing"),
+)
+
+
 @contextlib.contextmanager
-def layer_timers(device: str):
-    """Wall time by layer inside the app, each layer closed by a
+def layer_timers(device: str, targets=APP_LAYERS):
+    """Wall time by layer inside an app, each layer closed by a
     synchronize on the card: yields a Counter of seconds filled in as the
     app runs; the wrapped functions are restored on exit."""
     seconds = collections.Counter()
-    targets = (
-        (loaders, "read_detections", "ingest"),
-        (facade_mod.PlanarIntrinsicCalibrationFacade, "_prefilter", "prefilter"),
-        (facade_mod, "intrinsics_facade_batch", "solve"),
-        (batched, "reprojection_rms_batch", "qa_kernel"),
-        (reports, "build_planar_intrinsics_report", "report"),
-        (native, "dumps_fast", "report"),
-    )
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 
     def timed(fn, label):
@@ -279,7 +417,7 @@ def run_app(config, features, out, device):
     """One planar_intrinsics --fleet call; returns (report JSON, wall s,
     seconds by layer). Its own output goes to a buffer, shown on failure."""
     log = io.StringIO()
-    with layer_timers(device) as seconds, contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+    with layer_timers(device, APP_LAYERS) as seconds, contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         t0 = time.perf_counter()
         rc = planar_intrinsics.main(
             ["--fleet", "--device", device, "--config", config, "--features", *features, "-o", str(out)]
@@ -335,6 +473,148 @@ def check_parity(card, cpu, what, camera=True):
         )
         print(f"[smoke] {what}: camera max rel diff {cam!r}")
         check(cam <= CAMERA_PARITY_RTOL, f"{what}: camera within {CAMERA_PARITY_RTOL} relative")
+
+
+# the example data's stereo camera 1 (examples/generate_synthetic.py)
+STEREO_OFFSET = _pose([0.02, -0.3, 0.01], [-0.2, 0.0, 0.02])
+
+
+def write_rigs(directory, rigs, seed=17):
+    """``rigs`` stereo rigs as 2 * rigs detections files in the committed
+    format, each camera 10 views of an 8x11 grid (0.03 m) with 0.2 px noise
+    (the example data's cameras, K = [600, 610, 320, 240, 0], distortion
+    [-0.12, 0.04, 0, 1e-4, -5e-5], camera 1 at exp([0.02, -0.3, 0.01]),
+    t = [-0.2, 0, 0.02]; the views turn with the rig). Also an intrinsics
+    config for the 2 * rigs cameras and a pipeline input with one stereo
+    pair and one two-camera multicam rig per rig. A rig's data does not
+    depend on ``rigs``. Returns the pipeline input's path."""
+    directory = Path(directory)
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -5e-5])
+    obj = _grid(8, 11, 0.03)
+    views = 10
+    sensors, pairs, multicam = [], [], []
+    for r in range(rigs):
+        rng = np.random.default_rng([seed, r])
+        ang = 2 * np.pi * np.arange(views) / views + 0.05 * r
+        poses0 = np.stack([
+            _pose([0.3 * np.cos(a), 0.3 * np.sin(a), 0.1 * np.sin(2 * a)],
+                  [0.05 * np.cos(a), 0.05 * np.sin(a), 0.9 + 0.05 * np.sin(a)])
+            for a in ang
+        ])
+        names = []
+        for c, poses in enumerate((poses0, STEREO_OFFSET @ poses0)):
+            sid = f"rig{r:03d}_cam{c}"
+            path = directory / f"detections_{sid}.json"
+            path.write_text(json.dumps(detections_payload(sid, obj, _render(intr, poses, obj, 0.2, rng))))
+            sensors.append({"sensor_id": sid, "path": path.name})
+            names.append(sid)
+        files = [[f"{sid}_img_{v:03d}.png" for sid in names] for v in range(views)]
+        pairs.append({
+            "pair_id": f"pair{r:03d}", "reference_sensor": names[0], "target_sensor": names[1],
+            "views": [{"reference_image": a, "target_image": b} for a, b in files],
+            "options": {"optimize_intrinsics": True},
+        })
+        multicam.append({
+            "rig_id": f"rig{r:03d}", "sensors": names,
+            "views": [{"images": dict(zip(names, f))} for f in files],
+            "options": {"optimize_intrinsics": True},
+        })
+    config = {
+        "algorithm": "planar",
+        "options": {
+            "optim_options": {"core": {"huber_delta": 1.0, "max_iterations": 200}},
+            "min_corners_per_view": 20,
+            "refine": True,
+        },
+        "cameras": [
+            {"camera_id": s["sensor_id"], "model": "pinhole_brown_conrady", "image_size": [640, 480]}
+            for s in sensors
+        ],
+    }
+    (directory / "intrinsics_config.json").write_text(json.dumps(config))
+    path = directory / "pipeline_input.json"
+    path.write_text(json.dumps({
+        "planar_intrinsics_config": "intrinsics_config.json", "planar_detections": sensors,
+        "stereo": {"pairs": pairs}, "multicam": multicam,
+    }))
+    return str(path)
+
+
+def run_pipeline(input_path, out, device):
+    """One intrinsic_extrinsic_pipeline call; returns (artifacts JSON, wall
+    s, seconds by layer). Its own output goes to a buffer, shown on
+    failure."""
+    log = io.StringIO()
+    with layer_timers(device, PIPELINE_LAYERS) as seconds, contextlib.redirect_stdout(log), \
+            contextlib.redirect_stderr(log):
+        t0 = time.perf_counter()
+        rc = intrinsic_extrinsic_pipeline.main(["--input", input_path, "--output", str(out), "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        print(log.getvalue()[-4000:])
+    check(rc == 0, f"the pipeline app exits 0 on {device}")
+    return json.loads(Path(out).read_text()), wall, seconds
+
+
+def check_pipeline_artifacts(art, rigs):
+    pairs = art["stereo"]["pairs"]
+    summary = {s["name"]: s for s in art["pipeline_summary"]["stages"]}
+    cams = summary["intrinsics"]["cameras"]
+    check(len(cams) == 2 * rigs and all(c["warnings"]["rms_check"] == 0 for c in cams),
+          f"intrinsics stage: kernel QA recheck within {QA_ATOL_PX} px of view_errors on all {2 * rigs} cameras")
+    check(summary["stereo"]["status"] == "ok"
+          and [p["status"] for p in summary["stereo"]["pairs"]] == ["ok"] * rigs, f"all {rigs} stereo pairs ok")
+    check(len(art["multicam"]) == rigs and all(r["success"] for r in art["multicam"].values()),
+          f"all {rigs} multicam rigs converged")
+    for what, entries in (("stereo", pairs.values()), ("multicam", art["multicam"].values())):
+        c1 = np.array([e["optimization"]["c_se3_r"][1] for e in entries])
+        tra, rot = pose_errors(c1, np.broadcast_to(STEREO_OFFSET, c1.shape))
+        print(f"[smoke] pipeline {what}: camera 1 vs truth max {tra!r} m, {rot!r} deg")
+        check(tra <= POSE_TOL_M and rot <= POSE_TOL_DEG,
+              f"{what}: camera 1 within {POSE_TOL_M} m and {POSE_TOL_DEG} deg of the truth for every rig")
+
+
+def without_durations(art):
+    art = json.loads(json.dumps(art))
+    for stage in art["pipeline_summary"]["stages"]:
+        stage.pop("duration_s")
+    return art
+
+
+def pipeline_phase(card: str) -> int:
+    """The intrinsic_extrinsic_pipeline app over PIPELINE_RIGS rigs on the
+    card, then card/CPU parity on PIPELINE_PARITY_RIGS rigs. Returns the
+    kernel launches of the app's first call, the path's counted run."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_helpers import assert_reports_match
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (Path(tmp) / "fleet").mkdir()
+        input_path = write_rigs(Path(tmp) / "fleet", PIPELINE_RIGS)
+        print(f"[smoke] pipeline: wrote {2 * PIPELINE_RIGS} detections files in {time.perf_counter() - t0!r} s")
+        launches = None
+        for call in ("first", "warm"):
+            pr.launches = 0
+            art, wall, seconds = run_pipeline(input_path, Path(tmp) / f"artifacts_{call}.json", "cuda")
+            if launches is None:
+                launches = pr.launches  # the path's one counted run; the warm call repeats it
+            layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
+            print(f"[smoke] pipeline {call} call: {wall!r} s = {PIPELINE_RIGS / wall!r} rigs/s on {card}; "
+                  f"{layers}; other {wall - sum(seconds.values())!r} s; kernel launches {pr.launches}")
+            check_pipeline_artifacts(art, PIPELINE_RIGS)
+            check(pr.launches > 0, "the pipeline's intrinsics stage launched the projection-residual kernel")
+
+        k = PIPELINE_PARITY_RIGS
+        (Path(tmp) / "small").mkdir()
+        small = write_rigs(Path(tmp) / "small", k)
+        cpu, _, _ = run_pipeline(small, Path(tmp) / "artifacts_cpu.json", "cpu")
+        card_k, _, _ = run_pipeline(small, Path(tmp) / "artifacts_card4.json", "cuda")
+        assert_reports_match(without_durations(cpu), without_durations(card_k))
+        print(f"[smoke] ok: pipeline card vs CPU artifacts on {k} rigs within the report bounds")
+    return launches
 
 
 def app_phase(card: str) -> int:
@@ -439,6 +719,8 @@ def main() -> int:
     check(rel <= COST_PARITY_RTOL, f"card/CPU cost parity within {COST_PARITY_RTOL} relative")
 
     launches += app_phase(card)
+    stereo_phase(dev, card)
+    launches += pipeline_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "projection_residuals_f32",

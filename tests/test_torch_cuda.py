@@ -1,9 +1,11 @@
 """Card-only tests of the PyTorch port: the CUDA projection-residual kernel
 against its plain version, the facade on the card against the same facade
-on the CPU, the batched RANSAC prefilter on the card, and the
-planar_intrinsics app on the card against the app on the CPU. Every test
-here is marked ``cuda`` and skips without a CUDA device. This file imports
-no JAX, so it also runs where JAX is not installed:
+on the CPU, the batched RANSAC prefilter on the card, the
+planar_intrinsics app on the card against the app on the CPU, the
+extrinsics batch on the card against the CPU, and the
+intrinsic_extrinsic_pipeline app on the card against the app on the CPU.
+Every test here is marked ``cuda`` and skips without a CUDA device. This
+file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
@@ -14,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from calibration_tpu_torch.apps import planar_intrinsics
+import chip_smoke
+from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac, se3
-from calibration_tpu_torch.optim import IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import intrinsics_facade_batch
+from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.parallel import extrinsics_batch, intrinsics_facade_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +152,39 @@ def test_app_on_card_matches_cpu(cuda_device, tmp_path):
             assert pr.launches == before + 1  # the QA recheck ran the kernel
         reports.append(json.loads(out.read_text()))
     assert_reports_match(reports[1], reports[0])
+
+
+@pytest.mark.parametrize("covariance", [False, True], ids=["phased", "single_phase_covariance"])
+def test_extrinsics_batch_on_card_matches_cpu(cuda_device, covariance):
+    """8 rigs of the config-3 set, phased (boundaries forced) or in one
+    phase with covariance: the same counters, cost within 1e-7 relative,
+    covariance within 1e-6 of its largest entry."""
+    p = chip_smoke.stereo_problems(8)
+    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=covariance))
+    keys = ("obj", "uv", "intr0", "c0", "r0")
+    gpu = extrinsics_batch(*(torch.as_tensor(p[k], device=cuda_device) for k in keys), opts=opts, two_phase=True)
+    cpu = extrinsics_batch(*(torch.as_tensor(p[k]) for k in keys), opts=opts, two_phase=True)
+    assert bool(gpu[0].success.all())
+    assert torch.equal(gpu[0].linearizations.cpu(), cpu[0].linearizations)
+    assert torch.equal(gpu[0].iterations.cpu(), cpu[0].iterations)
+    assert float(((gpu[0].cost.cpu() - cpu[0].cost).abs() / cpu[0].cost).max()) <= 1e-7
+    if covariance:
+        assert bool(gpu[5].all())
+        scale = cpu[4].abs().amax(dim=(-2, -1))
+        assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+def test_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
+    """examples/data/pipeline_input.json with --device cuda gives the
+    --device cpu artifacts within the report bounds; the intrinsics stage
+    ran the kernel."""
+    arts = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        before = pr.launches
+        argv = ["--input", "examples/data/pipeline_input.json", "--output", str(out), "--device", device]
+        assert intrinsic_extrinsic_pipeline.main(argv) == 0
+        if device == "cuda":
+            assert pr.launches > before
+        arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
+    assert_reports_match(arts[1], arts[0])

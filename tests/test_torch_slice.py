@@ -143,10 +143,9 @@ def test_single_phase_with_fixed_distortion_matches_jax():
 
 def test_phase_schedule_keeps_the_budget():
     for total in (1, 6, 7, 40):
-        opts = dataclasses.replace(TOPTS, core=dataclasses.replace(TOPTS.core, max_iterations=total))
-        sched = tb.phase_schedule(opts)
+        sched = tb.phase_schedule(total, (tb.TWO_PHASE_CAP_A,))
         assert sum(sched) == total and sched[0] == min(6, total)
-    assert tb.phase_schedule(TOPTS) == (6, 34)
+    assert tb.phase_schedule(TOPTS.core.max_iterations, (tb.TWO_PHASE_CAP_A,)) == (6, 34)
 
 
 def test_convert_carries_every_option_field():

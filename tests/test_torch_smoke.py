@@ -1,8 +1,9 @@
-"""CPU rehearsal of ``chip_smoke.py``'s app phase, which otherwise runs only
-on the card: the same fleet generator at a small size (4 sensors), the app
-on the CPU, and the phase's own report checks, so a wrong path, shape or
-threshold shows here before a chip run. Also: the script refuses to run
-without a card, and outside the repository. No JAX is imported."""
+"""CPU rehearsal of ``chip_smoke.py``'s app, stereo and pipeline phases,
+which otherwise run only on the card: the same generators at a small size
+(4 sensors, 4 rigs), the apps and the solve on the CPU, and the phases' own
+checks, so a wrong path, shape or threshold shows here before a chip run.
+Also: the script refuses to run without a card, and outside the
+repository. No JAX is imported."""
 
 import os
 import shutil
@@ -15,7 +16,8 @@ import torch
 
 import chip_smoke
 from calibration_tpu_torch.ops import ransac
-from calibration_tpu_torch.pipeline import loaders
+from calibration_tpu_torch.parallel import extrinsics_batch
+from calibration_tpu_torch.pipeline import loaders, stages
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -43,6 +45,57 @@ def test_fleet_generator_does_not_depend_on_fleet_size(tmp_path):
     _, large, d_large = chip_smoke.write_fleet(tmp_path / "b", 3)
     assert (d_large[:2] == d_small).all()
     assert [Path(p).read_text() for p in large[:2]] == [Path(p).read_text() for p in small]
+
+
+def test_stereo_phase_checks_pass_on_cpu():
+    """4 rigs of the config-3 set on the phased schedule the card runs at
+    B = 128: every rig converges, camera 1 within the pose bound."""
+    p = chip_smoke.stereo_problems(4)
+    out = extrinsics_batch(
+        *(torch.as_tensor(p[k]) for k in ("obj", "uv", "intr0", "c0", "r0")),
+        opts=chip_smoke.STEREO_OPTS, two_phase=True,
+    )
+    chip_smoke.check_stereo(out, p["rel_gt"])
+    assert int(out[0].iterations.max()) > 5  # past the first phase
+
+
+def test_stereo_problems_restate_the_benchmark_set():
+    """The generator equals the JAX package's benchmarks/problems.py one.
+    Asked of a fresh interpreter: that module sets torch's default dtype."""
+    code = (
+        "import numpy as np, chip_smoke\n"
+        "from benchmarks import problems\n"
+        "want, got = problems.stereo_problems(3), chip_smoke.stereo_problems(3)\n"
+        "assert sorted(want) == sorted(got)\n"
+        "for k in want:\n"
+        "    np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-9, err_msg=k)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_pipeline_phase_checks_pass_on_cpu(tmp_path):
+    """The pipeline app on 4 rigs: every pair ok, every rig converged,
+    camera 1 within the pose bound, every layer timed; the timers come off
+    again."""
+    input_path = chip_smoke.write_rigs(tmp_path, 4)
+    run = stages.IntrinsicStage.run
+    art, wall, seconds = chip_smoke.run_pipeline(input_path, tmp_path / "a.json", "cpu")
+    assert stages.IntrinsicStage.run is run
+    chip_smoke.check_pipeline_artifacts(art, 4)
+    assert set(seconds) == {"ingest", "intrinsics", "stereo", "multicam", "writing"}
+    assert 0 < sum(seconds.values()) <= wall
+    files = sorted(p.name for p in tmp_path.glob("detections_*.json"))
+    assert len(files) == 8 and files[0] == "detections_rig000_cam0.json"
+
+
+def test_rig_generator_does_not_depend_on_fleet_size(tmp_path):
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    chip_smoke.write_rigs(tmp_path / "a", 2)
+    chip_smoke.write_rigs(tmp_path / "b", 3)
+    for name in ("detections_rig000_cam0.json", "detections_rig001_cam1.json"):
+        assert (tmp_path / "a" / name).read_text() == (tmp_path / "b" / name).read_text()
 
 
 def test_smoke_refuses_without_card():
