@@ -7,8 +7,9 @@ interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``:
          -Xcompiler -fPIC -o <lib> csrc/*.cu
 
 at first use, into ``build/calibration_tpu_torch/<hash of the sources>/``
-beside the package. A missing nvcc or a failed build raises. Every pointer
-and the CUDA stream cross as ``c_void_p``, every int as ``c_int``.
+beside the package. A missing nvcc or a failed build raises. A launcher
+takes the address of its argument struct and the CUDA stream, both as
+``c_void_p``, and returns ``cudaGetLastError()`` as ``c_int``.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every launcher's
     signature declared."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.projection_residuals_f32_launch.argtypes = [ptr] * 7 + [i32, i32, ptr]
-    lib.projection_residuals_f32_launch.restype = i32
+    for fn in (lib.projection_residuals_launch, lib.projection_rms_launch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -1,9 +1,9 @@
 """Native (C++) detections codec and JSON writer (port of
 ``calibration_tpu/native/__init__.py``).
 
-The C++ sources are the JAX package's own, ``calibration_tpu/native/
-dataset_codec.cpp`` and ``fastjson.cpp``, read by path: nothing of
-``calibration_tpu`` is imported. They build with g++ on first use into
+The C++ sources, ``dataset_codec.cpp`` and ``fastjson.cpp`` beside this
+module, are copies of the JAX package's (kept byte-identical by
+``tests/test_torch_no_jax.py``). They build with g++ on first use into
 ``build/calibration_tpu_torch/native/<hash of source, flags and Python>/``
 beside the package (never into the package directory), through the
 kernels' build helper (``kernels/_build.py``).
@@ -36,7 +36,7 @@ import numpy as np
 from ..kernels import _build as _kbuild
 
 _ROOT = Path(__file__).resolve().parents[2]
-_SRC_DIR = _ROOT / "calibration_tpu" / "native"
+_SRC_DIR = Path(__file__).resolve().parent
 _BUILD_ROOT = _ROOT / "build" / "calibration_tpu_torch" / "native"
 _GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 _lock = threading.Lock()
@@ -47,7 +47,7 @@ _fj_failed = False
 
 
 def _build(src_name: str, out_name: str, extra_flags: tuple = (), key: str = "") -> Optional[Path]:
-    """Compile ``calibration_tpu/native/<src_name>`` unless the library for
+    """Compile ``<src_name>`` of this package unless the library for
     this source, these flags and ``key`` exists; None when g++ fails or is
     missing."""
     flags = _GXX_FLAGS + extra_flags

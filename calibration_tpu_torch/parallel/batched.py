@@ -16,7 +16,7 @@ import torch
 
 from ..models.registry import PINHOLE, get_model
 from ..ops import intrinsics_linear, planarpose
-from ..ops.projection_residuals import projection_residuals_f32
+from ..ops.projection_residuals import projection_rms_f32
 from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
 from ..optim.intrinsics import (
     IntrinsicsOptimOptions,
@@ -219,32 +219,18 @@ def intrinsics_facade_batch(
     return seed, pose_ok, out, rms_check
 
 
-def _rms_from_residuals(res, mask_r):
-    cnt = torch.clamp(torch.sum(mask_r.to(res.dtype), dim=-1), min=1.0)
-    return torch.sqrt(torch.sum(res * res, dim=(-2, -1)) / (2.0 * cnt))
-
-
 def reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask=None):
-    """Fleet QA metric: per-view reprojection RMS for B cameras through the
-    fused float32 projection-residual kernel (``projection_residuals_f32``:
-    the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor).
+    """Fleet QA metric: per-view float32 reprojection RMS for B cameras
+    (``projection_rms_f32``: one launch of the CUDA kernel in RMS mode on a
+    CUDA tensor, reading the caller's tensors in place; its plain version on
+    a CPU tensor).
 
     c_se3_t: (B, V, 4, 4); intrs: (B, 10); obj_xy/img_uv: (B, V, N, 2);
     mask: (B, V, N). Returns (B, V) float32 RMS in pixels.
     """
-    b, v, n = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
     if mask is None:
-        mask = torch.ones((b, v, n), dtype=torch.float32, device=obj_xy.device)
-    mask_r = mask.reshape(b * v, n).to(torch.float32)
-    res = projection_residuals_f32(
-        c_se3_t[..., :3, :3].reshape(b * v, 3, 3),
-        c_se3_t[..., :3, 3].reshape(b * v, 3),
-        intrs[:, None, :].expand(b, v, intrs.shape[-1]).reshape(b * v, -1),
-        obj_xy.reshape(b * v, n, 2),
-        img_uv.reshape(b * v, n, 2),
-        mask_r,
-    )
-    return _rms_from_residuals(res, mask_r).reshape(b, v)
+        mask = torch.ones(obj_xy.shape[:3], dtype=torch.float32, device=obj_xy.device)
+    return projection_rms_f32(c_se3_t, intrs, obj_xy, img_uv, mask)
 
 
 def _extrinsics_phased_solve(opts: ExtrinsicOptions, solver: str):

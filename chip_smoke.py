@@ -5,14 +5,21 @@
 
 1. Requires a CUDA device (exits non-zero without one) and prints the
    card's name and power limit.
-2. Builds the CUDA kernels of ``calibration_tpu_torch/csrc`` with nvcc.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the facade (2560 x 88) and the pipeline's intrinsics stage
-   (1280 x 88) give it and at a ragged one, and times both (CUDA events).
+2. Builds the CUDA kernels of ``calibration_tpu_torch/csrc`` with nvcc and,
+   beside that build, prints ptxas's registers and spills for K1.
+3. Holds both modes of K1 (``projection_residuals_f32``, residual mode;
+   ``projection_rms_f32``, the fused QA recheck) against their plain
+   versions on the card, from float32 (bool and float32 masks) and float64
+   inputs, at the shapes the facade (2560 x 88) and the pipeline's
+   intrinsics stage (1280 x 88) give it and at a ragged one, each with an
+   all-masked view: within KERNEL_ATOL_PX of plain float64, the RMS within
+   RMS_RTOL_F32 of plain float32, masked residuals exactly 0.
 4. Drives the main path once: ``intrinsics_facade_batch`` on the bench.py
    problem set (B = 256 cameras, 10 views of an 8x11 grid, noise 0.2 px,
    seed 7, max_iterations 40, epsilon 1e-9, covariance on), checks the
-   result and that the kernel was launched, then times a second call.
+   result and that its QA recheck was one K1 launch in RMS mode, then
+   times a second call. The public residual op then runs once on the
+   solved fleet; the RMS of its residuals must be the QA recheck's.
 5. Solves the first 8 problems again on the CPU and holds the final costs
    against the card's within 1e-7 relative.
 6. Drives the planar_intrinsics app (``--fleet --device cuda``) on the same
@@ -21,8 +28,8 @@
    a warm call, each timed by layer (ingest, prefilter, solve, QA kernel,
    report writing). It checks the reports (every displaced point rejected
    and every clean point kept, every camera converged, mean RMS in
-   [0.15, 0.25] px, no QA warning), that the kernel and the prefilter ran
-   on the card, and card/CPU parity of the app on the first 8 sensors.
+   [0.15, 0.25] px, no QA warning), that K1 (RMS mode) and the prefilter
+   ran on the card, and card/CPU parity of the app on the first 8 sensors.
 7. Solves the stereo benchmark set (BASELINE config 3: B = 128 two-camera
    rigs, 8 views of a 5x7 grid at 0.05 m, noise 0.2 px, seed 13,
    max_iterations 50, covariance off, so the phased schedule runs) through
@@ -36,22 +43,38 @@
    and a warm call, each timed by layer (ingest, intrinsics stage, stereo
    stage, multicam, writing). It checks exit 0, every pair ``ok``, every
    rig converged, camera 1's pose within the pose bound for every pair and
-   rig, that the intrinsics stage launched the kernel and that its QA
+   rig, that the intrinsics stage launched K1 in RMS mode and that its QA
    recheck agrees with the f64 view errors on every camera, and card/CPU parity
    of the artifacts on the first 4 rigs (``tests/torch_helpers``' report
    bounds).
+9. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+   time of the bare launcher captured in a CUDA graph (L2-warm on one input
+   set, L2-cold over rotating sets), the kernel's duration as
+   torch.profiler reads it, the wrapper's host time per call, the bound and
+   its share, the plain version's device time, and the old unfused QA pass
+   (float32 copies, residual mode, the RMS in PyTorch) beside the RMS mode;
+   and checks with torch.profiler that ``reprojection_rms_batch`` runs one
+   device kernel, K1. This comes last: the profiler's tracing would slow
+   the end-to-end phases' launches.
 
-Earlier lines report each phase; the line before the last is the kernels
-JSON record, and the last line is the device JSON record. Any failed check
-exits non-zero. The script imports nothing of JAX.
+Earlier lines report each phase. Then come the kernels JSON record (one
+entry per K1 mode: launches on the driven paths, the worst error against
+plain f64, and at 2560 x 88 the device time ``ms`` (L2-cold) and
+``ms_warm``, the profiler's ``kernel_ms``, the wrapper's ``host_ms``,
+``plain_ms``, ``bound_ms``), the card's name and power limit, and last the
+device JSON record. Any failed check exits non-zero. The script imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import functools
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -74,6 +97,16 @@ from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_faca
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
 
 KERNEL_ATOL_PX = 5e-3  # f32 rounding of ~640 px values; the JAX kernel's gate
+RMS_RTOL_F32 = 1e-5  # K1's RMS mode vs the plain f32 RMS: only the summation order differs
+# NVIDIA's H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the
+# tensor cores, at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# K1's operations per point: R [x, y, 0] + t 12, inverse depth 1, xn/yn 2,
+# r^2 3, radial 6, tangential xd 10 and yd 10, K 6, residual * mask 4; RMS
+# mode adds rx^2 + ry^2 and the two sums, 5
+FLOPS_PER_POINT = {"residuals": 54, "rms": 59}
+L2_COLD_BYTES = 120e6  # the cold timing's input sets together: over twice the 50 MB L2
 QA_ATOL_PX = 5e-3  # the facade's rms_check warning threshold
 COST_PARITY_RTOL = 1e-7  # card vs CPU final robust cost
 CAMERA_PARITY_RTOL = 1e-6  # card vs CPU refined camera, app reports
@@ -108,20 +141,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean time of ``fn`` on the card over ``reps`` calls, after warm-up."""
-    for _ in range(10):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _exp_so3(w):
@@ -168,46 +187,233 @@ def pose_errors(c_se3_r, truth):
     return tra, float(np.degrees(np.arccos(cos)).max())
 
 
-def residual_inputs(r, n, seed):
-    """Random rows of the kernel's inputs (the JAX kernel tests' recipe)."""
+def qa_inputs(b, v, n, seed, dtype, mask_dtype, dev):
+    """Random QA-recheck inputs on the card (the JAX kernel tests' recipe,
+    one camera per problem): c_se3_t (B, V, 4, 4), intrs (B, 10),
+    obj_xy/img_uv (B, V, N, 2) of ``dtype``, mask (B, V, N) of
+    ``mask_dtype`` with view 3 (or the last) all masked."""
     rng = np.random.default_rng(seed)
-    intr = np.tile(np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.15, 0.05, 0.0, 1e-4, -2e-4]), (r, 1))
-    intr[:, 0] += rng.normal(0, 5, r)
-    rot = _exp_so3(rng.normal(0, 0.2, (r, 3)))
-    tra = rng.normal(0, 0.05, (r, 3)) + [0, 0, 1.0]
-    obj = rng.uniform(-0.15, 0.15, (r, n, 2))
-    uv = rng.uniform(0, 640, (r, n, 2))
-    mask = rng.uniform(size=(r, n)) > 0.2
-    return rot, tra, intr, obj, uv, mask
+    intr = np.tile(np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.15, 0.05, 0.0, 1e-4, -2e-4]), (b, 1))
+    intr[:, 0] += rng.normal(0, 5, b)
+    poses = np.tile(np.eye(4), (b, v, 1, 1))
+    poses[..., :3, :3] = _exp_so3(rng.normal(0, 0.2, (b, v, 3)))
+    poses[..., :3, 3] = rng.normal(0, 0.05, (b, v, 3)) + [0, 0, 1.0]
+    obj = rng.uniform(-0.15, 0.15, (b, v, n, 2))
+    uv = rng.uniform(0, 640, (b, v, n, 2))
+    mask = rng.uniform(size=(b, v, n)) > 0.2
+    mask.reshape(b * v, n)[min(3, b * v - 1)] = False
+    return [torch.as_tensor(a, dtype=t, device=dev)
+            for a, t in zip((poses, intr, obj, uv, mask), (dtype,) * 4 + (mask_dtype,))]
+
+
+def qa_rows(c_se3_t, intrs, obj_xy, img_uv, mask):
+    """The QA inputs as the residual op's rows (R = B x V), as the JAX
+    reprojection_rms_batch lays them out (copies where the slice or the
+    broadcast needs one)."""
+    b, v, n = obj_xy.shape[:3]
+    return (c_se3_t[..., :3, :3].reshape(b * v, 3, 3), c_se3_t[..., :3, 3].reshape(b * v, 3),
+            intrs[:, None, :].expand(b, v, 10).reshape(b * v, 10), obj_xy.reshape(b * v, n, 2),
+            img_uv.reshape(b * v, n, 2), mask.reshape(b * v, n))
+
+
+def old_qa_pass(c_se3_t, intrs, obj_xy, img_uv, mask):
+    """The QA recheck as it ran before the RMS mode, from the public pieces:
+    float32 copies of the rows, the residual mode, then the RMS in PyTorch."""
+    b, v = obj_xy.shape[:2]
+    rows = [t.to(torch.float32).contiguous() for t in qa_rows(c_se3_t, intrs, obj_xy, img_uv, mask)]
+    return pr._rms_from_residuals(pr.projection_residuals_f32(*rows), rows[5]).reshape(b, v)
+
+
+# (b, v, n) of the facade and the app (256 cameras x 10 views), of the
+# pipeline's intrinsics stage (128 cameras x 10 views) and a ragged one
+QA_SHAPES = ((256, 10, 88), (2 * PIPELINE_RIGS, 10, 88), (19, 1, 150))
+# input and mask dtypes: f32 with a bool mask and with an f32 mask, f64
+# with an f64 mask (the facade's)
+QA_DTYPES = ((torch.float32, torch.bool), (torch.float32, torch.float32), (torch.float64, torch.float64))
 
 
 def kernel_phase(dev):
-    """Kernel vs plain at the shapes the facade and the pipeline's
-    intrinsics stage give it, and at a ragged shape; timed at the first."""
-    worst = 0.0
-    timing = None
-    for r, n, seed in ((2560, 88, 11), (2 * PIPELINE_RIGS * 10, 88, 13), (19, 150, 5)):
-        arrays = residual_inputs(r, n, seed)
-        f32 = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
-        f64 = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in arrays]
-        got = pr.projection_residuals_f32(*f32)
+    """Both modes of K1 against their plain versions on the card, at every
+    QA_SHAPES shape and QA_DTYPES pair. Returns the worst |kernel - plain
+    f64| in px of each mode."""
+    worst = {"residuals": 0.0, "rms": 0.0}
+    for (b, v, n), seed in zip(QA_SHAPES, (11, 13, 5)):
+        for dtype, mask_dtype in QA_DTYPES:
+            what = f"{b * v}x{n} {str(dtype)[6:]}/{str(mask_dtype)[6:]} mask"
+            args = qa_inputs(b, v, n, seed, dtype, mask_dtype, dev)
+            exact = [a.double() for a in args]
+            res = pr.projection_residuals_f32(*qa_rows(*args))
+            rms = pr.projection_rms_f32(*args)
+            torch.cuda.synchronize()
+            res64 = pr.projection_residuals_plain(*qa_rows(*exact))
+            rms64 = pr._rms_from_residuals(res64, exact[4].reshape(b * v, n)).reshape(b, v)
+            rms32 = pr.projection_rms_plain(*args)
+            err_res = float((res.double() - res64).abs().max())
+            err_rms = float((rms.double() - rms64).abs().max())
+            rel32 = float(((rms - rms32).abs() / rms32.clamp(min=1e-30)).max())
+            print(f"[smoke] K1 {what}: residuals max|kernel - plain f64| {err_res!r} px; "
+                  f"RMS max|kernel - plain f64| {err_rms!r} px, max rel vs plain f32 {rel32!r}")
+            check(err_res <= KERNEL_ATOL_PX and err_rms <= KERNEL_ATOL_PX,
+                  f"K1 {what}: both modes within {KERNEL_ATOL_PX} px of plain f64")
+            check(rel32 <= RMS_RTOL_F32, f"K1 {what}: RMS within {RMS_RTOL_F32} relative of plain f32")
+            masked = ~args[4].reshape(b * v, n).bool()
+            check(bool((res[masked] == 0).all()) and float(rms.reshape(-1)[min(3, b * v - 1)]) == 0.0,
+                  f"K1 {what}: masked residuals exactly 0, the all-masked view's RMS 0")
+            worst = {"residuals": max(worst["residuals"], err_res), "rms": max(worst["rms"], err_rms)}
+    return worst
+
+
+def bound_ms(mode, b, v, n, scalar_bytes, mask_bytes):
+    """The least time the card could take for one launch: bytes moved (each
+    input read once, each output written once) over HBM3's 3.35 TB/s, or
+    operations over 67 TFLOP/s f32, whichever is larger. Returns (ms,
+    "bytes" or "operations")."""
+    rows, points = b * v, b * v * n
+    per_point = 4 * scalar_bytes + mask_bytes + (8 if mode == "residuals" else 0)
+    # poses: 12 of 16 values per row; intrinsics: per row in residual mode
+    # ((R, 10) rows), per camera in RMS mode ((B, 10), shared by the views)
+    nbytes = points * per_point + rows * 12 * scalar_bytes + (rows if mode == "residuals" else b) * 10 * scalar_bytes
+    nbytes += rows * 4 if mode == "rms" else 0
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = points * FLOPS_PER_POINT[mode] / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def bare_launcher(mode, views, out):
+    """A call of the C launcher alone (no Python checks, no counter) on
+    fixed tensors: what a CUDA graph captures to time the kernel."""
+    fn = getattr(_build.load_library(), f"projection_{mode}_launch")
+    args = pr.launch_args(*views, out)
+
+    def call():
+        err = fn(ctypes.addressof(args), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SmokeFailure(f"K1 {mode} launch failed: CUDA error {err}")
+    return call
+
+
+def graph_ms(calls, replays=20):
+    """Device ms per call: ``calls`` captured in order into one CUDA graph,
+    whose replays are timed with CUDA events. Returns (ms, graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * len(calls)), graph
+
+
+def profiled_kernel_ms(graph, replays=5):
+    """Mean duration of K1's kernel in ``replays`` replays of ``graph`` as
+    torch.profiler reads it from the device, without the gaps between
+    graph nodes; None when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
         torch.cuda.synchronize()
-        ref64 = pr.projection_residuals_plain(*f64)
-        ref32 = pr.projection_residuals_plain(*f32)
-        err64 = float((got.double() - ref64).abs().max())
-        err32 = float((got - ref32).abs().max())
-        masked = ~f32[5].bool()
-        print(f"[smoke] kernel {r}x{n}: max|kernel - plain f64| = {err64!r} px, "
-              f"max|kernel - plain f32| = {err32!r} px")
-        check(err64 <= KERNEL_ATOL_PX, f"kernel {r}x{n} within {KERNEL_ATOL_PX} px of plain f64")
-        check(bool((got[masked] == 0).all()), f"kernel {r}x{n} masked entries are exactly 0")
-        worst = max(worst, err64)
-        if timing is None:
-            ms = cuda_ms(lambda: pr.projection_residuals_f32(*f32), 200)
-            plain_ms = cuda_ms(lambda: pr.projection_residuals_plain(*f32), 200)
-            print(f"[smoke] kernel {r}x{n}: {ms!r} ms/launch, plain f32 {plain_ms!r} ms/call")
-            timing = (ms, plain_ms)
-    return worst, timing
+    evts = [e for e in prof.key_averages() if "projection_kernel" in e.key]
+    total_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0) for e in evts)
+    count = sum(e.count for e in evts)
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def host_ms(fn, reps=200):
+    """Host time per call of ``fn`` issued back to back (no synchronize
+    inside the loop, so this is what the host spends issuing it)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
+def synced_ms(fn, reps=50):
+    """Host clock per call of ``fn`` followed by a synchronize."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def timing_phase(dev, b, v, n):
+    """K1's device time per mode (CUDA graph replay, L2-warm on one input
+    set and L2-cold rotating over enough sets to exceed the 50 MB L2 twice),
+    the kernel's own duration from the profiler, the wrapper's host time,
+    the bound and its share, the plain versions' device time, and the old
+    unfused QA pass beside the RMS mode (device, and host clock with
+    synchronize). RMS mode reads float64 with a float64 mask (the facade's
+    inputs); residual mode reads float32 with a float32 mask (the JAX
+    kernel's inputs). Returns a dict per mode."""
+    out = {}
+    for mode, dtype in (("rms", torch.float64), ("residuals", torch.float32)):
+        size = torch.tensor([], dtype=dtype).element_size()
+        bound, bound_by = bound_ms(mode, b, v, n, size, size)
+        sets = max(6, math.ceil(L2_COLD_BYTES / (bound * 1e-3 * HBM_BYTES_PER_S)))
+        inputs = [qa_inputs(b, v, n, 100 + k, dtype, dtype, dev) for k in range(sets)]
+        if mode == "rms":
+            outs = [torch.empty((b, v), dtype=torch.float32, device=dev) for _ in range(sets)]
+            views = [pr._rms_views(*a) for a in inputs]
+            wrapper = lambda: pr.projection_rms_f32(*inputs[0])
+            plain = [functools.partial(pr.projection_rms_plain, *a) for a in inputs]
+        else:
+            outs = [torch.empty((b * v, 1, n, 2), dtype=torch.float32, device=dev) for _ in range(sets)]
+            rows = [qa_rows(*a) for a in inputs]
+            views = [[t.unsqueeze(1) for t in r] for r in rows]
+            wrapper = lambda: pr.projection_residuals_f32(*rows[0])
+            plain = [functools.partial(pr.projection_residuals_plain, *r) for r in rows]
+        launch = [bare_launcher(mode, vw, o) for vw, o in zip(views, outs)]
+        calls = 4 * sets
+        warm, warm_graph = graph_ms([launch[0]] * calls)
+        cold, cold_graph = graph_ms([launch[k % sets] for k in range(calls)])
+        rec = dict(
+            ms=cold, ms_warm=warm, kernel_ms_warm=profiled_kernel_ms(warm_graph),
+            kernel_ms=profiled_kernel_ms(cold_graph), host_ms=host_ms(wrapper),
+            plain_ms=graph_ms([plain[k % sets] for k in range(2 * sets)], replays=5)[0],
+            bound_ms=bound, bound_by=bound_by, cold_sets=sets,
+        )
+        if mode == "rms":
+            rec["old_pass_ms"] = graph_ms([functools.partial(old_qa_pass, *inputs[k % sets])
+                                           for k in range(2 * sets)], replays=5)[0]
+            rec["old_pass_synced_ms"] = synced_ms(lambda: old_qa_pass(*inputs[0]))
+            rec["synced_ms"] = synced_ms(wrapper)
+        share = {k: bound / rec[k] for k in ("ms", "ms_warm", "kernel_ms", "kernel_ms_warm") if rec[k]}
+        print(f"[smoke] K1 {mode} mode {b * v}x{n} from {str(dtype)[6:]}: device {cold!r} ms cold "
+              f"({sets} input sets), {warm!r} ms warm (graph replay); kernel alone (profiler) "
+              f"{rec['kernel_ms']!r} ms cold, {rec['kernel_ms_warm']!r} ms warm; wrapper host "
+              f"{rec['host_ms']!r} ms/call; bound {bound!r} ms ({bound_by}); share of the bound "
+              f"{share!r}; plain {rec['plain_ms']!r} ms")
+        if mode == "rms":
+            print(f"[smoke] QA recheck {b * v}x{n}: old unfused pass {rec['old_pass_ms']!r} ms device, "
+                  f"{rec['old_pass_synced_ms']!r} ms host+sync; RMS mode {cold!r} ms device, "
+                  f"{rec['synced_ms']!r} ms host+sync")
+        out[mode] = rec
+        del inputs, outs, views, launch, plain, warm_graph, cold_graph
+    return out
 
 
 def make_problems(batch, views=10, rows=8, cols=11, noise=0.2, seed=7):
@@ -597,15 +803,15 @@ def pipeline_phase(card: str) -> int:
         print(f"[smoke] pipeline: wrote {2 * PIPELINE_RIGS} detections files in {time.perf_counter() - t0!r} s")
         launches = None
         for call in ("first", "warm"):
-            pr.launches = 0
+            zero_launches()
             art, wall, seconds = run_pipeline(input_path, Path(tmp) / f"artifacts_{call}.json", "cuda")
             if launches is None:
-                launches = pr.launches  # the path's one counted run; the warm call repeats it
+                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
             layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
             print(f"[smoke] pipeline {call} call: {wall!r} s = {PIPELINE_RIGS / wall!r} rigs/s on {card}; "
-                  f"{layers}; other {wall - sum(seconds.values())!r} s; kernel launches {pr.launches}")
+                  f"{layers}; other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}")
             check_pipeline_artifacts(art, PIPELINE_RIGS)
-            check(pr.launches > 0, "the pipeline's intrinsics stage launched the projection-residual kernel")
+            check(pr.launches["rms"] > 0, "the pipeline's intrinsics stage launched K1 in RMS mode")
 
         k = PIPELINE_PARITY_RIGS
         (Path(tmp) / "small").mkdir()
@@ -627,18 +833,18 @@ def app_phase(card: str) -> int:
         print(f"[smoke] app: wrote {FLEET} detections files in {time.perf_counter() - t0!r} s")
         launches = None
         for call in ("first", "warm"):
-            pr.launches = 0
+            zero_launches()
             rounds = ransac.rounds["cuda"]
             report, wall, seconds = run_app(config, features, Path(tmp) / f"report_{call}.json", "cuda")
             rounds = ransac.rounds["cuda"] - rounds
             if launches is None:
-                launches = pr.launches  # the path's one counted run; the warm call repeats it
+                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
             layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
             print(f"[smoke] app {call} call: {wall!r} s = {FLEET / wall!r} sensors/s on {card}; {layers}; "
-                  f"other {wall - sum(seconds.values())!r} s; kernel launches {pr.launches}, "
+                  f"other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}, "
                   f"prefilter rounds on the card {rounds}")
             check_fleet_report(report, displaced)
-            check(pr.launches > 0, "the app launched the projection-residual kernel")
+            check(pr.launches["rms"] > 0, "the app launched K1 in RMS mode")
             check(rounds > 0, "the app's RANSAC prefilter ran on the card")
 
         k = PARITY_SENSORS
@@ -651,6 +857,45 @@ def app_phase(card: str) -> int:
         # minimum agrees in cost, not along the flat fx/k3 valley
         check_parity(fleet_k, cpu, f"app card ({FLEET} sensors) vs CPU, first {k}", camera=False)
     return launches
+
+
+def zero_launches() -> None:
+    for mode in pr.launches:
+        pr.launches[mode] = 0
+
+
+def start_ptxas_report() -> subprocess.Popen:
+    """nvcc with -Xptxas -v on K1's source (a cubin into a temporary
+    directory), started beside the library build: registers and spills of
+    every instantiation."""
+    tmp = tempfile.mkdtemp()
+    src = _build.CSRC_DIR / "projection_residuals.cu"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [_build._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", str(Path(tmp) / "k1.cubin"), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def print_ptxas_report(proc: subprocess.Popen) -> None:
+    text, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, "nvcc -Xptxas -v compiles K1's source")
+    for line in text.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"[smoke] ptxas: {line.strip()}")
+
+
+def qa_kernel_count(c_se3_t, intrs, obj_xy, img_uv, mask):
+    """Device kernels one reprojection_rms_batch call runs, by name, as
+    torch.profiler reads them; None when the profiler shows no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        batched.reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) > 0}
+    return kernels or None
 
 
 def main() -> int:
@@ -667,13 +912,15 @@ def main() -> int:
     print(f"[smoke] card (name, power limit): {card}")
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report()
     lib = _build.build()
     _build.load_library()
     print(f"[smoke] built {lib} in {time.perf_counter() - t0!r} s")
+    print_ptxas_report(ptxas)
 
-    max_err, (ms, plain_ms) = kernel_phase(dev)
+    max_err = kernel_phase(dev)
 
-    # the main path, once, with the launch count read around it
+    # the main path, once, with the launch counts read around it
     b = 256
     obj, uv, intr_gt = make_problems(b)
     obj_d = torch.as_tensor(obj, device=dev)
@@ -681,32 +928,46 @@ def main() -> int:
     opts = IntrinsicsOptimOptions(
         core=OptimOptions(max_iterations=40, epsilon=1e-9, compute_covariance=True)
     )
-    pr.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     _, _, out, rms_check = intrinsics_facade_batch(obj_d, uv_d, opts=opts)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = pr.launches
-    lm_out, intr, _, view_errors, cov, cov_ok = out
+    facade_launches = dict(pr.launches)
+    lm_out, intr, poses, view_errors, cov, cov_ok = out
     n_ok = int(lm_out.success.sum())
     rms = float(torch.sqrt(torch.mean(view_errors**2)))
     fx_err = float((intr[:, 0] - intr_gt[0]).abs().mean())
     qa_warn = int(((rms_check.double() - view_errors).abs() > QA_ATOL_PX).sum())
     print(f"[smoke] facade B={b}: {n_ok}/{b} lanes converged, mean view RMS {rms!r} px, "
           f"mean |fx - 600| {fx_err!r} px, linearizations max {int(lm_out.linearizations.max())}, "
-          f"QA warnings {qa_warn}, kernel launches {launches}, first call {cold_s!r} s")
+          f"QA warnings {qa_warn}, K1 launches {facade_launches}, first call {cold_s!r} s")
     check(n_ok == b, f"all {b} lanes converged")
     check(0.15 <= rms <= 0.25, "mean view RMS within [0.15, 0.25] px")
     check(fx_err < 5.0, "mean |fx - 600| < 5 px")
     check(bool(cov_ok.all()) and bool(torch.isfinite(cov).all()), "every covariance finite")
     check(qa_warn == 0, f"QA recheck within {QA_ATOL_PX} px of view_errors for every view")
-    check(launches > 0, "the facade launched the projection-residual kernel")
+    check(facade_launches == {"residuals": 0, "rms": 1}, "the facade's QA recheck is one K1 launch in RMS mode")
 
     t0 = time.perf_counter()
     intrinsics_facade_batch(obj_d, uv_d, opts=opts)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     print(f"[smoke] facade B={b} warm call: {warm_s!r} s = {b / warm_s!r} solves/s on {card}")
+
+    # the public residual op, as a user calls it, on the facade's solved
+    # fleet; its RMS must be the QA recheck's
+    zero_launches()
+    ones = torch.ones(obj_d.shape[:3], dtype=obj_d.dtype, device=dev)
+    rows = qa_rows(poses, intr, obj_d, uv_d, ones)
+    res = pr.projection_residuals_f32(*rows)
+    torch.cuda.synchronize()
+    residual_launches = pr.launches["residuals"]
+    diff = float((pr._rms_from_residuals(res, rows[5]).reshape(rms_check.shape) - rms_check).abs().max())
+    print(f"[smoke] residual op on the solved fleet: {tuple(res.shape)}, K1 launches {pr.launches}, "
+          f"max |RMS of its residuals - QA recheck| {diff!r} px")
+    check(residual_launches == 1 and pr.launches["rms"] == 0, "the residual op is one K1 launch in residual mode")
+    check(diff <= KERNEL_ATOL_PX, f"the residual op's RMS within {KERNEL_ATOL_PX} px of the QA recheck")
 
     k = 8
     _, _, out_cpu, _ = intrinsics_facade_batch(
@@ -718,20 +979,37 @@ def main() -> int:
     print(f"[smoke] card vs CPU final cost, first {k} problems: max rel diff {rel!r}")
     check(rel <= COST_PARITY_RTOL, f"card/CPU cost parity within {COST_PARITY_RTOL} relative")
 
-    launches += app_phase(card)
+    rms_launches = facade_launches["rms"] + app_phase(card)
     stereo_phase(dev, card)
-    launches += pipeline_phase(card)
+    rms_launches += pipeline_phase(card)
 
-    print(json.dumps({"kernels": [{
-        "name": "projection_residuals_f32",
-        "route": "cuda",
-        "source": "calibration_tpu_torch/csrc/projection_residuals.cu",
-        "replaces": "calibration_tpu/ops/pallas_kernels.py:40",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # last, so that the profiler's device tracing (CUPTI) is off during the
+    # end-to-end phases above
+    timing = {(b, v, n): timing_phase(dev, b, v, n) for b, v, n in QA_SHAPES[:2]}
+    kernels = qa_kernel_count(poses, intr, obj_d, uv_d, ones)
+    print(f"[smoke] device kernels of one reprojection_rms_batch call (profiler): {kernels}")
+    if kernels is not None:
+        check(sum(kernels.values()) == 1 and "projection_kernel" in next(iter(kernels)),
+              "reprojection_rms_batch runs one device kernel, K1, and copies nothing")
+
+    source = "calibration_tpu_torch/csrc/projection_residuals.cu"
+    facade_shape = timing[QA_SHAPES[0]]
+    records = []
+    for mode, name, replaces, launches in (
+        ("residuals", "projection_residuals", "calibration_tpu/ops/pallas_kernels.py:40", residual_launches),
+        ("rms", "projection_rms", "calibration_tpu/ops/pallas_kernels.py:40, calibration_tpu/parallel/batched.py:734",
+         rms_launches),
+    ):
+        t = facade_shape[mode]
+        records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err[mode],
+            "ms": t["ms"], "ms_warm": t["ms_warm"], "kernel_ms": t["kernel_ms"], "host_ms": t["host_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes this function
+            "shape": f"{QA_SHAPES[0][0] * QA_SHAPES[0][1]}x{QA_SHAPES[0][2]}",
+        })
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

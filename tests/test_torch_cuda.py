@@ -1,5 +1,5 @@
 """Card-only tests of the PyTorch port: the CUDA projection-residual kernel
-against its plain version, the facade on the card against the same facade
+in both modes (residuals, per-view RMS) against its plain versions, the facade on the card against the same facade
 on the CPU, the batched RANSAC prefilter on the card, the
 planar_intrinsics app on the card against the app on the CPU, the
 extrinsics batch on the card against the CPU, and the
@@ -55,15 +55,52 @@ def _rows(r, n, seed):
 @pytest.mark.parametrize("r,n,seed", [(5, 37, 2), (19, 150, 5), (2560, 88, 11), (70000, 3, 1)])
 def test_kernel_matches_plain(cuda_device, r, n, seed):
     arrays = _rows(r, n, seed)
-    before = pr.launches
+    before = pr.launches["residuals"]
     got = pr.projection_residuals_f32(*(torch.as_tensor(a, device=cuda_device) for a in arrays))
     torch.cuda.synchronize()
-    assert pr.launches == before + 1
+    assert pr.launches["residuals"] == before + 1
     ref = pr.projection_residuals_plain(
         *(torch.as_tensor(a, dtype=torch.float64, device=cuda_device) for a in arrays)
     )
     assert float((got.double() - ref).abs().max()) <= ATOL_PX
     assert bool((got[~torch.as_tensor(arrays[5], device=cuda_device)] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,v,n,seed", [(256, 10, 88, 11), (19, 1, 150, 5)])
+def test_rms_mode_matches_plain(cuda_device, b, v, n, seed, dtype):
+    """One RMS-mode launch per call: within ATOL_PX of plain float64, within
+    1e-5 relative of plain float32 (only the summation order differs), 0 on
+    an all-masked view, the same bits on a second launch."""
+    rot, tra, intr, obj, uv, mask = _rows(b * v, n, seed)
+    mask[3] = False
+    poses = np.tile(np.eye(4), (b * v, 1, 1))
+    poses[:, :3, :3], poses[:, :3, 3] = rot, tra
+    args = [poses.reshape(b, v, 4, 4), intr[::v].copy(), obj.reshape(b, v, n, 2), uv.reshape(b, v, n, 2),
+            mask.reshape(b, v, n)]
+    card = [torch.as_tensor(a, dtype=dtype if a.dtype != bool else None, device=cuda_device) for a in args]
+    before = pr.launches["rms"]
+    got = pr.projection_rms_f32(*card)
+    again = pr.projection_rms_f32(*card)
+    torch.cuda.synchronize()
+    assert pr.launches["rms"] == before + 2 and got.dtype == torch.float32 and got.shape == (b, v)
+    plain64 = _rms_plain_f64(*(torch.as_tensor(a, device=cuda_device) for a in args))
+    plain32 = pr.projection_rms_plain(*card)
+    assert float((got.double() - plain64).abs().max()) <= ATOL_PX
+    assert float(((got - plain32).abs() / plain32.clamp(min=1e-30)).max()) <= 1e-5
+    assert float(got.reshape(-1)[3]) == 0.0
+    assert torch.equal(got, again)
+
+
+def _rms_plain_f64(c_se3_t, intrs, obj, uv, mask):
+    """The RMS in exact float64: the plain residuals of the f64 rows."""
+    b, v, n = obj.shape[:3]
+    res = pr.projection_residuals_plain(
+        c_se3_t[..., :3, :3].reshape(-1, 3, 3), c_se3_t[..., :3, 3].reshape(-1, 3),
+        intrs[:, None].expand(b, v, 10).reshape(-1, 10), obj.reshape(-1, n, 2), uv.reshape(-1, n, 2),
+        mask.reshape(-1, n),
+    )
+    return pr._rms_from_residuals(res, mask.reshape(-1, n)).reshape(b, v)
 
 
 def test_facade_on_card_matches_cpu(cuda_device):
@@ -82,12 +119,12 @@ def test_facade_on_card_matches_cpu(cuda_device):
     obj = torch.as_tensor(np.broadcast_to(grid, (b, v) + grid.shape).copy())
     opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, epsilon=1e-9))
 
-    before = pr.launches
+    before = dict(pr.launches)
     _, _, out_gpu, rms_gpu = intrinsics_facade_batch(
         obj.to(cuda_device), uv.to(cuda_device), opts=opts, two_phase=True
     )
     torch.cuda.synchronize()
-    assert pr.launches == before + 1  # the QA recheck went through the kernel
+    assert pr.launches == dict(before, rms=before["rms"] + 1)  # the QA recheck: one RMS launch
     _, _, out_cpu, rms_cpu = intrinsics_facade_batch(obj, uv, opts=opts, two_phase=True)
     assert bool(out_gpu[0].success.all())
     assert torch.equal(out_gpu[0].linearizations.cpu(), out_cpu[0].linearizations)
@@ -141,7 +178,7 @@ def test_app_on_card_matches_cpu(cuda_device, tmp_path):
     reports = []
     for device in ("cuda", "cpu"):
         out = tmp_path / f"{device}.json"
-        before = pr.launches
+        before = pr.launches["rms"]
         argv = [
             "--fleet", "--device", device, "--config", "examples/data/planar_intrinsics_config.json",
             "--features", "examples/data/detections_cam0.json", "examples/data/detections_cam1.json",
@@ -149,7 +186,7 @@ def test_app_on_card_matches_cpu(cuda_device, tmp_path):
         ]
         assert planar_intrinsics.main(argv) == 0
         if device == "cuda":
-            assert pr.launches == before + 1  # the QA recheck ran the kernel
+            assert pr.launches["rms"] == before + 1  # the QA recheck ran the kernel
         reports.append(json.loads(out.read_text()))
     assert_reports_match(reports[1], reports[0])
 
@@ -181,10 +218,10 @@ def test_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
     arts = []
     for device in ("cuda", "cpu"):
         out = tmp_path / f"{device}.json"
-        before = pr.launches
+        before = pr.launches["rms"]
         argv = ["--input", "examples/data/pipeline_input.json", "--output", str(out), "--device", device]
         assert intrinsic_extrinsic_pipeline.main(argv) == 0
         if device == "cuda":
-            assert pr.launches > before
+            assert pr.launches["rms"] > before
         arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
     assert_reports_match(arts[1], arts[0])

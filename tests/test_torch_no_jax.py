@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of calibration_tpu_torch (nor
 chip_smoke.py, which runs where JAX is not installed) imports JAX or the
-JAX package, and importing any module of the port loads no JAX module."""
+JAX package or builds a path into it, importing any module of the port
+loads no JAX module, and the native sources the port builds are its own
+copies (byte-identical to the JAX package's today)."""
 
 import ast
 import pathlib
@@ -26,6 +28,38 @@ def _imported_roots(path):
 def test_no_jax_import(path):
     bad = [m for m in _imported_roots(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _into_jax_package(node):
+    """Whether a string constant names the JAX package as a path: the bare
+    directory name, or a path starting with it used in a ``/`` join or as
+    an argument of a call (Path, open, os.path.join, ...). A "file:line"
+    record such as chip_smoke's "replaces" is neither."""
+    if not (isinstance(node, ast.Constant) and isinstance(node.value, str)):
+        return False
+    return node.value.replace("\\", "/").split("/")[0] == "calibration_tpu"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_package(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Constant) and node.value == "calibration_tpu":
+            bad.append(node.lineno)
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            bad += [n.lineno for n in (node.left, node.right) if _into_jax_package(n)]
+        elif isinstance(node, ast.Call):
+            bad += [n.lineno for n in node.args if _into_jax_package(n)]
+    assert not bad, f"{path.relative_to(ROOT)} builds a path into calibration_tpu/ at lines {bad}"
+
+
+@pytest.mark.parametrize("name", ["dataset_codec.cpp", "fastjson.cpp"])
+def test_native_sources_are_the_ports_own_copies(name):
+    from calibration_tpu_torch import native
+
+    port_dir = ROOT / "calibration_tpu_torch"
+    assert native._SRC_DIR.is_relative_to(port_dir)
+    assert (native._SRC_DIR / name).read_bytes() == (ROOT / "calibration_tpu" / "native" / name).read_bytes()
 
 
 def test_importing_the_port_loads_no_jax():

@@ -98,6 +98,34 @@ def test_rig_generator_does_not_depend_on_fleet_size(tmp_path):
         assert (tmp_path / "a" / name).read_text() == (tmp_path / "b" / name).read_text()
 
 
+def test_kernel_phase_checks_pass_on_cpu(monkeypatch):
+    """K1's phase at small shapes, with the CPU's plain versions in the
+    wrappers' place: every check of both modes holds, the worst errors are
+    reported per mode."""
+    monkeypatch.setattr(chip_smoke, "QA_SHAPES", ((4, 3, 37), (2, 2, 20), (3, 1, 50)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    worst = chip_smoke.kernel_phase(torch.device("cpu"))
+    assert set(worst) == {"residuals", "rms"}
+    assert 0 < worst["residuals"] <= chip_smoke.KERNEL_ATOL_PX and 0 < worst["rms"] <= chip_smoke.KERNEL_ATOL_PX
+
+
+def test_old_qa_pass_is_the_rms_of_the_residual_mode():
+    """The smoke's old unfused pass computes the RMS mode's function: on the
+    CPU both are the plain RMS, bit for bit."""
+    args = chip_smoke.qa_inputs(4, 3, 37, 1, torch.float64, torch.float64, "cpu")
+    got = chip_smoke.old_qa_pass(*args)
+    assert torch.equal(got, chip_smoke.pr.projection_rms_f32(*args))
+    assert float(got.reshape(-1)[3]) == 0.0  # qa_inputs masks view 3 whole
+
+
+@pytest.mark.parametrize("mode,size,want_us", [("rms", 8, 2.772), ("residuals", 4, 1.950)])
+def test_k1_bound_at_the_facade_shape(mode, size, want_us):
+    """2560 x 88: RMS mode from float64 moves 9.29 MB, residual mode from
+    float32 6.53 MB; both are bound by HBM bytes."""
+    ms, by = chip_smoke.bound_ms(mode, 256, 10, 88, size, size)
+    assert by == "bytes" and abs(ms * 1e3 - want_us) < 1e-3
+
+
 def test_smoke_refuses_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would run")
