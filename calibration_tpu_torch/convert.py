@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .models.camera_matrix import CalibrationBounds
+from .ops.handeye_linear import MotionPairs
 from .optim.core import OptimizerType, OptimOptions
 from .optim.extrinsics import ExtrinsicOptions
 from .optim.intrinsics import IntrinsicsOptimOptions
@@ -58,6 +59,34 @@ def calibration_bounds(bounds) -> CalibrationBounds | None:
     if bounds is None:
         return None
     return CalibrationBounds(**dataclasses.asdict(bounds))
+
+
+def handeye_pipeline_config(cfg):
+    """The reference's ``HandEyePipelineConfig`` -> the port's."""
+    # imported here: the pipeline package imports this module
+    from .pipeline.facades.handeye import HandEyeObservationConfig, HandEyePipelineConfig, HandEyeRigConfig
+
+    return HandEyePipelineConfig(rigs=[
+        HandEyeRigConfig(
+            rig_id=rig.rig_id,
+            sensors=list(rig.sensors),
+            observations=[
+                HandEyeObservationConfig(
+                    view_id=o.view_id, base_se3_gripper=np.array(o.base_se3_gripper, float), images=dict(o.images)
+                )
+                for o in rig.observations
+            ],
+            options=optim_options(rig.options),
+            min_angle_deg=rig.min_angle_deg,
+        )
+        for rig in cfg.rigs
+    ])
+
+
+def motion_pairs(pairs, device="cpu") -> MotionPairs:
+    """The reference's ``MotionPairs`` (any leading dims) -> the port's,
+    float64 on ``device``."""
+    return MotionPairs(*(to_tensor(a, device) for a in pairs))
 
 
 def to_tensor(a, device, dtype=torch.float64) -> torch.Tensor:

@@ -1,5 +1,6 @@
 from . import (
     extrinsics_linear,
+    handeye_linear,
     homography,
     intrinsics_linear,
     linalg,
@@ -11,6 +12,7 @@ from . import (
 
 __all__ = [
     "extrinsics_linear",
+    "handeye_linear",
     "homography",
     "intrinsics_linear",
     "linalg",

@@ -116,3 +116,30 @@ def symmetric_rms_px(h, src, dst, inlier_mask):
     w = inlier_mask.to(r.dtype)
     cnt = torch.clamp(torch.sum(w, dim=-1), min=1.0)
     return torch.sqrt(torch.sum(r * w, dim=-1) / (2.0 * cnt))
+
+
+def estimate_homography(obj_xy, img_uv, mask=None, ransac_options=None):
+    """DLT-on-all or RANSAC homography with diagnostics, for one problem
+    (obj_xy/img_uv (N, 2)) or a batch of lanes ((L, N, 2)). Returns a dict
+    mirroring HomographyResult: {"success", "hmtx", "inlier_mask",
+    "symmetric_rms_px"}. The RANSAC branch is the batched
+    ``ransac.ransac_homography``."""
+    single = obj_xy.ndim == 2
+    if single:
+        obj_xy, img_uv = obj_xy[None], img_uv[None]
+        mask = None if mask is None else mask[None]
+    if mask is None:
+        mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
+    mask = mask.bool()
+
+    if ransac_options is not None:
+        from .ransac import ransac_homography
+
+        rr = ransac_homography(obj_xy, img_uv, ransac_options, mask=mask)
+        out = {"success": rr.success, "hmtx": rr.model, "inlier_mask": rr.inlier_mask}
+    else:
+        h = estimate_homography_dlt(obj_xy, img_uv, mask)
+        ok = (mask.sum(dim=-1) >= MIN_SAMPLES) & torch.isfinite(h).all(dim=-1).all(dim=-1)
+        out = {"success": ok, "hmtx": h, "inlier_mask": mask}
+    out["symmetric_rms_px"] = symmetric_rms_px(out["hmtx"], obj_xy, img_uv, out["inlier_mask"])
+    return {k: v[0] for k, v in out.items()} if single else out

@@ -70,6 +70,14 @@ def spd_inverse(a):
     return torch.cholesky_solve(eye, cholesky(a))
 
 
+def ridge_llsq(a, b, lam: float = 1e-10):
+    """(A^T A + lam I)^-1 A^T b via Cholesky. a: (..., M, N); b: (..., M)."""
+    n = a.shape[-1]
+    ata = torch.einsum("...ki,...kj->...ij", a, a) + lam * torch.eye(n, dtype=a.dtype, device=a.device)
+    atb = torch.einsum("...ki,...k->...i", a, b)
+    return spd_solve(ata, atb)
+
+
 def _finite_lanes(a):
     """(ok (...,), a with its non-finite lanes zeroed)."""
     ok = torch.isfinite(a).all(dim=-1).all(dim=-1)

@@ -1,5 +1,5 @@
 """SO(3)/SE(3) utilities (port of ``calibration_tpu/ops/se3.py``, the part
-the planar-intrinsics and extrinsics slices use).
+the planar-intrinsics, extrinsics and hand-eye slices use).
 
 Poses are 4x4 homogeneous matrices, rotations 3x3 matrices, quaternions
 (w, x, y, z). Everything broadcasts over leading batch dimensions. The
@@ -112,6 +112,22 @@ def quat_mul(a, b):
     )
 
 
+def log_so3(r):
+    """SO(3) log map -> axis-angle 3-vector, by the quaternion route:
+    differentiable at the identity (Taylor branch) and defined near pi."""
+    q = rotmat_to_quat(r)
+    sgn = torch.where(q[..., 0] < 0, -1.0, 1.0).to(r.dtype)  # angle in [0, pi]
+    w = q[..., 0] * sgn
+    v = q[..., 1:] * sgn[..., None]
+    s2 = torch.sum(v * v, dim=-1)
+    small = s2 < 1e-16
+    s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    angle = 2.0 * torch.atan2(s, w)
+    # factor = angle / s; Taylor: 2/w * (1 - s^2/(3 w^2))
+    taylor = 2.0 / torch.clamp(w, min=_EPS) * (1.0 - s2 / (3.0 * torch.clamp(w * w, min=_EPS)))
+    return v * torch.where(small, taylor, angle / s)[..., None]
+
+
 def exp_quat(w):
     """Axis-angle 3-vector -> unit quaternion (w, x, y, z), Taylor-safe."""
     theta2 = torch.sum(w * w, dim=-1)
@@ -132,6 +148,14 @@ def make_se3(r, t):
     bottom = torch.zeros(batch + (1, 4), dtype=r.dtype, device=r.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def rot(m):
+    return m[..., :3, :3]
+
+
+def tra(m):
+    return m[..., :3, 3]
 
 
 def se3_inverse(m):

@@ -1,4 +1,4 @@
-from . import blocks, core, extrinsics, intrinsics, lm, lm_schur, manifold
+from . import blocks, core, extrinsics, handeye, homography, intrinsics, lm, lm_schur, manifold
 from .core import OptimOptions, OptimResult, OptimizerType, TerminationType
 from .extrinsics import (
     ExtrinsicOptimizationResult,
@@ -6,6 +6,13 @@ from .extrinsics import (
     optimize_extrinsics,
     optimize_extrinsics_device,
 )
+from .handeye import (
+    HandeyeResult,
+    estimate_and_optimize_handeye,
+    optimize_handeye,
+    optimize_handeye_device,
+)
+from .homography import optimize_homography, optimize_homography_device
 from .intrinsics import (
     IntrinsicsOptimizationResult,
     IntrinsicsOptimOptions,
@@ -13,18 +20,20 @@ from .intrinsics import (
     optimize_intrinsics,
     optimize_intrinsics_device,
 )
-from .lm import LMOutput, covariance_from_tangent
+from .lm import LMOutput, covariance, covariance_from_tangent, lm_core
 from .lm_schur import SchurOutput, lm_core_schur, tangent_covariance
 from .manifold import ProductManifold, euclid, quat
 
 __all__ = [
-    "blocks", "core", "extrinsics", "intrinsics", "lm", "lm_schur", "manifold",
+    "blocks", "core", "extrinsics", "handeye", "homography", "intrinsics", "lm", "lm_schur", "manifold",
     "OptimOptions", "OptimResult", "OptimizerType", "TerminationType",
     "ExtrinsicOptions", "ExtrinsicOptimizationResult", "optimize_extrinsics",
     "optimize_extrinsics_device",
+    "HandeyeResult", "estimate_and_optimize_handeye", "optimize_handeye", "optimize_handeye_device",
+    "optimize_homography", "optimize_homography_device",
     "IntrinsicsOptimOptions", "IntrinsicsOptimizationResult", "intrinsics_covariance_device",
     "optimize_intrinsics", "optimize_intrinsics_device",
-    "LMOutput", "covariance_from_tangent",
+    "LMOutput", "covariance", "covariance_from_tangent", "lm_core",
     "SchurOutput", "lm_core_schur", "tangent_covariance",
     "ProductManifold", "euclid", "quat",
 ]

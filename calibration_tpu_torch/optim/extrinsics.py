@@ -1,6 +1,6 @@
 """Joint multi-camera extrinsics (+ optional intrinsics) refinement,
-batched over rigs (port of ``calibration_tpu/optim/extrinsics.py`` with the
-Schur solver).
+batched over rigs (port of ``calibration_tpu/optim/extrinsics.py``, Schur
+and dense solvers).
 
 Parameter layout per rig: [intr_0..intr_C, cam_quat_0.., cam_tran_0..,
 view_quat_0.., view_tran_0..], the reference's ExtrinsicBlocks order.
@@ -12,8 +12,9 @@ The Schur engine's global block is the C intrinsics plus the C camera
 poses (a manifold: the camera quaternions retract by right-multiplied
 exp), the per-view block the target pose. The Jacobian is the analytic
 pinhole ``_view_residual_jac_pinhole``, which the reference's tests hold
-equal to its default per-camera grouped jacfwd; the grouped jacfwd and the
-dense solver (``solver="dense"``) are not ported yet.
+equal to its default per-camera grouped jacfwd (not ported). The dense
+solver (``solver="dense"``) runs ``lm_core`` on the whole parameter vector
+with forward-mode Jacobians and the dense covariance.
 """
 
 from __future__ import annotations
@@ -154,10 +155,44 @@ def _free_mask(opts: ExtrinsicOptions, pc, c, v):
 
 
 def _check_solver(solver: str) -> None:
-    if solver == "dense":
-        raise NotImplementedError("solver='dense' (the dense lm_core engine) is not ported yet")
-    if solver != "schur":
+    if solver not in ("schur", "dense"):
         raise ValueError(f"unknown solver '{solver}'")
+
+
+def _residual_flat(x, obj_xy, img_uv, mask):
+    """The dense solver's residual (B, 2NCV) of the flat parameters, rows
+    ordered (view, camera, point, u/v)."""
+    v, c = obj_xy.shape[-4], obj_xy.shape[-3]
+    pc = (x.shape[-1] - 7 * c - 7 * v) // c
+    ga = c * pc + 7 * c
+    lead = x.shape[:-1]
+    vq = x[..., ga : ga + 4 * v].reshape(lead + (v, 4))
+    vt = x[..., ga + 4 * v :].reshape(lead + (v, 3))
+    r = _view_residual(x[..., :ga], vq, vt, obj_xy, img_uv, mask, pc, c)
+    return r.reshape(lead + (-1,))
+
+
+def _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower, manifold):
+    """``optimize_extrinsics_device`` with solver="dense": (LMOutput, cov,
+    cov_ok). Unlike the reference's dense branch, which computes the
+    covariance whatever the options say, it is computed only when
+    ``compute_covariance`` asks for it, as on the Schur path."""
+    b, v, c, n = obj_xy.shape[:4]
+    block_ids = np.repeat(np.arange(v * c), 2 * n)
+    data = (obj_xy, img_uv, mask)
+    out = lm.lm_core(
+        _residual_flat, x0, manifold, data=data, options=opts.core, free_mask=free, block_ids=block_ids,
+        num_blocks=v * c, lower=lower,
+    )
+    if opts.core.compute_covariance:
+        cov, cov_ok = lm.covariance(
+            _residual_flat, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v * c,
+            huber_delta=opts.core.huber_delta,
+        )
+    else:
+        cov = torch.zeros((b, x0.shape[-1], x0.shape[-1]), dtype=x0.dtype, device=x0.device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=x0.device)
+    return out, cov, cov_ok
 
 
 def optimize_extrinsics_device(
@@ -191,6 +226,15 @@ def optimize_extrinsics_device(
     lower[np.arange(c) * pc + PINHOLE.idx_fy] = 0.0
     # per-view pose freezing is the target-0 gauge
     view_free = torch.as_tensor(free_np[ga : ga + 4 * v].reshape(v, 4)[:, 0], dtype=dtype, device=device)
+
+    if solver == "dense":
+        lower_a = torch.cat([torch.as_tensor(lower, dtype=dtype, device=device),
+                             torch.full((7 * v,), -torch.inf, dtype=dtype, device=device)])
+        x0 = torch.cat([xg0, vq.reshape(b, -1), vt.reshape(b, -1)], dim=-1)
+        out, cov, cov_ok = _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower_a, manifold)
+        intr, cqf, ctf, vqf, vtf = unpack(out.x, pc, c, v)
+        return (out, intr, blocks.quat_tran_to_poses(cqf, ctf), blocks.quat_tran_to_poses(vqf, vtf), cov,
+                cov_ok)
 
     res_fn, jac_fn = _residual_fns(pc, c)
     view_data = (obj_xy, img_uv, mask)

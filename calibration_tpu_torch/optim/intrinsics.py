@@ -1,14 +1,15 @@
 """Joint intrinsics + per-view pose refinement for the pinhole model,
 batched over cameras (port of ``calibration_tpu/optim/intrinsics.py``:
-``optimize_intrinsics_device`` with the Schur solver at float64,
-``intrinsics_covariance_device``, and the host wrapper
+``optimize_intrinsics_device`` at float64 with the Schur or the dense
+solver, ``intrinsics_covariance_device``, and the host wrapper
 ``optimize_intrinsics``).
 
 Parameter layout per camera: [intr(pc), quat_0..quat_V, t_0..t_V], the
 reference's IntrinsicBlocks order. One Huber block per view. fx, fy get a
-zero lower bound; skew is frozen unless ``optimize_skew``. The Jacobian is
-the analytic ``_view_residual_jac_pinhole``, which the reference's tests
-hold equal to its jacfwd.
+zero lower bound; skew is frozen unless ``optimize_skew``. The Schur
+solver's Jacobian is the analytic ``_view_residual_jac_pinhole``, which the
+reference's tests hold equal to its jacfwd; the dense solver (``lm_core``)
+differentiates the whole residual by forward-mode autodiff.
 """
 
 from __future__ import annotations
@@ -54,6 +55,19 @@ def reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask):
     pc3 = pts @ rot.transpose(-1, -2) + trans[..., None, :]
     uv_hat = PINHOLE.project(intr[:, None, None, :], pc3)
     return (uv_hat - img_uv) * mask[..., None]
+
+
+def _unpack(x, pc, v):
+    """(B, pc + 7V) -> (intr (B, pc), quats (B, V, 4), trans (B, V, 3))."""
+    lead = x.shape[:-1]
+    return x[..., :pc], x[..., pc : pc + 4 * v].reshape(lead + (v, 4)), x[..., pc + 4 * v :].reshape(lead + (v, 3))
+
+
+def _residual_flat(x, obj_xy, img_uv, mask):
+    """The dense solver's residual (B, 2NV) of the flat parameters."""
+    v = obj_xy.shape[-3]
+    r = reproject_residuals(*_unpack(x, x.shape[-1] - 7 * v, v), obj_xy, img_uv, mask)
+    return r.reshape(r.shape[:-3] + (-1,))
 
 
 def _view_residual(intr, quats, trans, obj_xy, img_uv, mask):
@@ -153,11 +167,16 @@ def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, opts=No
 
 
 def optimize_intrinsics_device(
-    obj_xy, img_uv, init_intr, init_poses, mask=None, opts=None, view_valid=None
+    obj_xy, img_uv, init_intr, init_poses, mask=None, opts=None, view_valid=None, solver="schur"
 ):
     """Refine B cameras. obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc);
     init_poses: (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V)
     (invalid views get zero residuals and frozen pose blocks).
+
+    solver: "schur" (default) eliminates the per-view pose blocks
+    (``lm_core_schur``, block-inverse covariance); "dense" runs the generic
+    ``lm_core`` on the whole parameter vector with forward-mode Jacobians
+    and the dense covariance: the same damped iteration, more work.
 
     Returns (LMOutput, intr (B, pc), poses (B, V, 4, 4), view_errors (B, V),
     cov (B, pc+7V, pc+7V), cov_ok (B,)).
@@ -180,6 +199,10 @@ def optimize_intrinsics_device(
     lower_g = torch.full((pc,), -torch.inf, dtype=dtype, device=device)
     lower_g[PINHOLE.idx_fx] = 0.0
     lower_g[PINHOLE.idx_fy] = 0.0
+    if solver == "dense":
+        return _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold)
+    if solver != "schur":
+        raise ValueError(f"unknown solver '{solver}'")
 
     view_data = (obj_xy, img_uv, mask)
     sout = lm_schur.lm_core_schur(
@@ -200,10 +223,39 @@ def optimize_intrinsics_device(
         cov_ok = torch.zeros((b,), dtype=torch.bool, device=device)
 
     poses = blocks.quat_tran_to_poses(sout.quats, sout.trans)
-    r = reproject_residuals(sout.xg, sout.quats, sout.trans, obj_xy, img_uv, mask)
-    cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
-    view_errors = torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
+    view_errors = _view_errors(sout.xg, sout.quats, sout.trans, obj_xy, img_uv, mask)
     return out, sout.xg, poses, view_errors, cov, cov_ok
+
+
+def _view_errors(intr, quats, trans, obj_xy, img_uv, mask):
+    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask)
+    cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    return torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
+
+
+def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold):
+    """``optimize_intrinsics_device`` with solver="dense"."""
+    b, v, n = obj_xy.shape[:3]
+    pc = init_intr.shape[-1]
+    lower = torch.cat([lower_g, torch.full((7 * v,), -torch.inf, dtype=lower_g.dtype, device=lower_g.device)])
+    block_ids = np.repeat(np.arange(v), 2 * n)
+    data = (obj_xy, img_uv, mask)
+    out = lm.lm_core(
+        _residual_flat, blocks.pack_intr_quats_trans(init_intr, quats, trans), manifold, data=data,
+        options=opts.core, free_mask=free, block_ids=block_ids, num_blocks=v, lower=lower,
+    )
+    if opts.core.compute_covariance:
+        cov, cov_ok = lm.covariance(
+            _residual_flat, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v,
+            huber_delta=opts.core.huber_delta,
+        )
+    else:
+        n_amb = pc + 7 * v
+        cov = torch.zeros((b, n_amb, n_amb), dtype=obj_xy.dtype, device=obj_xy.device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
+    intr, quats_f, trans_f = _unpack(out.x, pc, v)
+    poses = blocks.quat_tran_to_poses(quats_f, trans_f)
+    return out, intr, poses, _view_errors(intr, quats_f, trans_f, obj_xy, img_uv, mask), cov, cov_ok
 
 
 @dataclasses.dataclass
@@ -215,7 +267,7 @@ class IntrinsicsOptimizationResult:
 
 
 def optimize_intrinsics(
-    obj_xy, img_uv, init_intr, init_c_se3_t, mask=None, opts=None, view_valid=None
+    obj_xy, img_uv, init_intr, init_c_se3_t, mask=None, opts=None, view_valid=None, solver="schur"
 ) -> IntrinsicsOptimizationResult:
     """Host-facing wrapper for ONE camera, a B = 1 call of
     ``optimize_intrinsics_device``. obj_xy/img_uv: (V, N, 2); init_intr:
@@ -227,7 +279,7 @@ def optimize_intrinsics(
     out, intr, poses, view_errors, cov, cov_ok = optimize_intrinsics_device(
         obj_xy[None], img_uv[None], init_intr[None], init_c_se3_t[None],
         mask=None if mask is None else mask[None], opts=opts,
-        view_valid=None if view_valid is None else view_valid[None],
+        view_valid=None if view_valid is None else view_valid[None], solver=solver,
     )
     core = OptimResult(
         success=bool(out.success[0]),

@@ -1,14 +1,32 @@
-"""The part of ``calibration_tpu/optim/lm.py`` the planar-intrinsics slice
-uses: the LM output record, the damping constants and the ambient lift of a
-tangent covariance. The dense ``lm_core`` engine is not ported yet.
+"""The dense Levenberg-Marquardt engine ``lm_core``, its ``covariance``, and
+the pieces the Schur engine shares (port of ``calibration_tpu/optim/lm.py``).
+
+``lm_core`` minimizes 0.5 * sum rho(|r_b|^2) over a product manifold for a
+batch of B independent problems: tangent-space Jacobians (a caller's
+analytic ``jac_fn``, or forward-mode autodiff of the retracted residual),
+Huber IRLS weights per residual block, Jacobi-scaled damped normal
+equations with Marquardt damping and the Nielsen mu-update, box bounds by
+projection after each retraction, and frozen coordinates through a free
+mask. ftol, gtol and xtol are all ``OptimOptions.epsilon``, gtol before
+xtol before ftol, and a lane succeeds iff it stops by a tolerance.
+
+The reference vmaps one problem's ``lax.while_loop`` over the batch. Here,
+as in ``optim/lm_schur.py``, the loops are Python loops over the whole
+batch with per-lane masks: a finished lane keeps every field, its counters
+included; the linearization is cached across rejected trials (a rejected
+trial re-solves the cached system with a larger mu); the host reads one
+flag per trial to decide whether any lane is still active.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..ops import linalg
+from .core import OptimOptions
 from .manifold import ProductManifold
 
 # Initial Nielsen damping for the Jacobi-scaled system (diag ~ 1, so this is
@@ -29,6 +47,290 @@ class LMOutput(NamedTuple):
     termination: torch.Tensor  # 0 no-conv, 1 ftol, 2 gtol, 3 xtol, 4 failure
     success: torch.Tensor
     linearizations: torch.Tensor  # residual + Jacobian evaluations
+
+
+def _loss_blocks(m: int, block_ids, num_blocks: int, device):
+    """The rows of each Huber loss block, as (run, ids): blocks that are
+    contiguous runs of equal length ``run`` are summed by a reshape (ids
+    None); any other map is summed by ``index_add_`` over ``ids``. No
+    block_ids is one block of all m rows."""
+    if block_ids is None:
+        return m, None
+    ids = np.asarray(block_ids.cpu() if isinstance(block_ids, torch.Tensor) else block_ids)
+    run = m // num_blocks if num_blocks and m % num_blocks == 0 else 0
+    if run and np.array_equal(ids, np.repeat(np.arange(num_blocks), run)):
+        return run, None
+    return None, torch.as_tensor(ids, dtype=torch.long, device=device)
+
+
+def _robust_weights(r, blocks, num_blocks: int, huber_delta: float):
+    """Huber IRLS row weights (B, m) and robust cost (B,) of residuals
+    r (B, m): per block, weight 1 inside the delta ball and delta/|r_b|
+    outside; cost 0.5 * sum rho(|r_b|^2)."""
+    run, ids = blocks
+    b, m = r.shape
+    if ids is None:
+        s = torch.sum((r * r).reshape(b, m // run, run), dim=-1)
+    else:
+        s = torch.zeros((b, num_blocks), dtype=r.dtype, device=r.device).index_add_(1, ids, r * r)
+    d2 = huber_delta * huber_delta
+    out = s > d2
+    sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
+    wb = torch.where(out, huber_delta / sqrt_s, torch.ones_like(s))
+    rho = torch.where(out, 2.0 * huber_delta * sqrt_s - d2, s)
+    w = wb.repeat_interleave(run, dim=-1) if ids is None else wb[:, ids]
+    return w, 0.5 * torch.sum(rho, dim=-1)
+
+
+def tangent_jacobian(residual_fn: Callable, manifold: ProductManifold, x, data=(), lower=None, upper=None):
+    """(r (B, m), jac (B, m, t)): the residuals at x and their Jacobian in
+    the manifold tangent at zero, d r(clip(retract(x, d))) / d d, by
+    forward-mode autodiff per lane (``torch.func.vmap`` of ``jacfwd``).
+
+    ``residual_fn(x (B, a), *data)`` is batched; each lane sees it with a
+    batch of one. ``lower``/``upper`` (broadcastable to x) clip the
+    retracted point, as the LM's iterate is clipped."""
+    bounds = [t.to(x.dtype).expand(x.shape) for t in (lower, upper) if t is not None]
+    has_lower = lower is not None
+
+    def lane(d, x1, *rest):
+        lohi, dat = rest[: len(bounds)], rest[len(bounds):]
+        xr = manifold.retract(x1, d)[None]
+        for k, bound in enumerate(lohi):
+            xr = torch.maximum(xr, bound) if (k == 0 and has_lower) else torch.minimum(xr, bound)
+        r = residual_fn(xr, *(t[None] for t in dat))[0]
+        return r, r
+
+    zero = torch.zeros(x.shape[:-1] + (manifold.tangent_dim,), dtype=x.dtype, device=x.device)
+    jac, r = torch.func.vmap(torch.func.jacfwd(lane, has_aux=True))(zero, x, *bounds, *data)
+    return r, jac
+
+
+def _tan_free(manifold: ProductManifold, free_mask, b: int, dtype, device):
+    if free_mask is None:
+        return torch.ones((b, manifold.tangent_dim), dtype=dtype, device=device)
+    mask = manifold.ambient_to_tangent_mask(free_mask.bool())
+    return mask.to(dtype).expand(b, manifold.tangent_dim)
+
+
+def lm_core(
+    residual_fn: Callable,
+    x0,
+    manifold: ProductManifold,
+    *,
+    data: tuple = (),
+    options: OptimOptions = OptimOptions(),
+    free_mask=None,
+    block_ids=None,
+    num_blocks: int = 0,
+    lower=None,
+    upper=None,
+    jac_fn: Optional[Callable] = None,
+) -> LMOutput:
+    """Minimize 0.5 * sum rho(|r|^2) over the manifold, for B problems.
+
+    Args:
+      residual_fn: (x (B, a), *data) -> (B, m) residuals (masked rows
+        zeroed by the caller).
+      x0: (B, a) initial ambient parameters.
+      manifold: parameter-block structure of one problem.
+      data: tuple of (B, ...) tensors passed to residual_fn and jac_fn.
+      free_mask: optional (a,) or (B, a) bool; False coordinates are frozen.
+      block_ids: optional (m,) robust-loss block id per residual row (numpy
+        or tensor, shared by the lanes); None is one block when
+        huber_delta > 0.
+      num_blocks: count of robust-loss blocks.
+      lower/upper: optional (a,) or (B, a) box bounds, enforced by
+        projection after each retraction.
+      jac_fn: optional analytic tangent Jacobian, (x, *data) -> (B, m, t);
+        it must equal ``tangent_jacobian`` of the residual. None ->
+        forward-mode autodiff.
+    """
+    eps = options.epsilon
+    huber = options.huber_delta
+    max_it = options.max_iterations
+    dtype, device = x0.dtype, x0.device
+    b = x0.shape[0]
+    tan_free = _tan_free(manifold, free_mask, b, dtype, device)
+    lo = None if lower is None else lower.to(dtype)
+    up = None if upper is None else upper.to(dtype)
+
+    def clip_x(x):
+        if lo is not None:
+            x = torch.maximum(x, lo)
+        if up is not None:
+            x = torch.minimum(x, up)
+        return x
+
+    def residuals(x):
+        return residual_fn(x, *data)
+
+    def linearize(x):
+        if jac_fn is not None:
+            # assumes the box bounds are inactive at the iterate (Ceres'
+            # interior linearization), as the reference does
+            return residuals(x), jac_fn(x, *data)
+        return tangent_jacobian(residual_fn, manifold, x, data, lo, up)
+
+    x = clip_x(x0)
+    r = residuals(x)
+    blocks = _loss_blocks(r.shape[-1], block_ids, num_blocks, device)
+    nb = num_blocks if block_ids is not None else 1
+
+    def cost_of(r):
+        if huber > 0:
+            return _robust_weights(r, blocks, nb, huber)[1]
+        return 0.5 * torch.sum(r * r, dim=-1)
+
+    def weighted(r, jac):
+        if huber > 0:
+            sw = torch.sqrt(_robust_weights(r, blocks, nb, huber)[0])
+            return r * sw, jac * sw[..., None]
+        return r, jac
+
+    cost = cost_of(r)
+    cost0 = cost
+    mu = torch.full((b,), _MU_INIT, dtype=dtype, device=device)
+    nu = torch.full((b,), 2.0, dtype=dtype, device=device)
+    it = torch.zeros((b,), dtype=torch.int64, device=device)
+    lin = torch.zeros_like(it)
+    termination = torch.zeros_like(it)
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    diag_free = torch.diag_embed(tan_free)
+    diag_fixed = torch.diag_embed(1.0 - tan_free)
+
+    def sel(mask, a, b_):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
+
+    while True:
+        outer = ~done & (it < max_it)
+        if not bool(outer.any()):
+            break
+        # one LINEARIZATION at the current iterate
+        r_lin, jac = linearize(x)
+        rw, jw = weighted(r_lin, jac)
+        jw = jw * tan_free[:, None, :]
+        g = torch.einsum("bmi,bm->bi", jw, rw)
+        a = jw.transpose(-1, -2) @ jw
+
+        gtol_hit = g.abs().amax(dim=-1) <= eps
+        diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
+        # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
+        # scaled system has unit diagonal, so the damping is mu * I and the
+        # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
+        # factorization stays SPD (their delta is zeroed)
+        d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
+        a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
+        x_norm = torch.linalg.norm(x, dim=-1)
+
+        # inner damping-retry loop on the cached linearization
+        t_x, t_cost, t_mu, t_nu, t_it = x, cost, mu, nu, it
+        accepted = torch.zeros_like(done)
+        t_term = torch.zeros_like(termination)
+        while True:
+            active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
+            if not bool(active.any()):
+                break
+            sys = a_s + t_mu[:, None, None] * diag_free
+            delta = -d * linalg.spd_solve(sys, d * g) * tan_free
+            delta_ok = torch.isfinite(delta).all(dim=-1)
+            delta = sel(delta_ok, delta, torch.zeros_like(delta))
+
+            step_norm = torch.linalg.norm(delta, dim=-1)
+            xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+
+            x_new = clip_x(manifold.retract(x, delta))
+            cost_new = cost_of(residuals(x_new))
+            pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
+            rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+            accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+            ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+
+            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+            mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+            term = torch.where(
+                gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+            ).to(termination.dtype)
+
+            t_x = sel(accept, x_new, t_x)
+            t_cost = sel(accept, cost_new, t_cost)
+            t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+            t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+            t_it = sel(active, t_it + 1, t_it)
+            accepted = accepted | accept
+            t_term = sel(active, term, t_term)
+
+        # lanes outside the outer loop never went active: their t_* are
+        # their own state
+        x, cost, mu, nu, it = t_x, t_cost, t_mu, t_nu, t_it
+        done = torch.where(outer, t_term > 0, done)
+        termination = torch.where(outer, t_term, termination)
+        lin = lin + outer.to(lin.dtype)
+
+    return LMOutput(
+        x=x,
+        cost=cost,
+        initial_cost=cost0,
+        iterations=it,
+        termination=termination,
+        success=termination > 0,
+        linearizations=lin,
+    )
+
+
+def covariance(
+    residual_fn: Callable,
+    x,
+    manifold: ProductManifold,
+    *,
+    data: tuple = (),
+    free_mask=None,
+    scale_by_variance: bool = False,
+    num_residuals=None,
+    block_ids=None,
+    num_blocks: int = 0,
+    huber_delta: float = 0.0,
+    jac_r=None,
+    jac_fn: Optional[Callable] = None,
+):
+    """Ambient-space covariance at a solution, for B problems.
+
+    C_tangent = (J^T J)^-1 on the free dims, lifted to C = D C_t D^T with D
+    the retract Jacobian. With ``huber_delta`` > 0 the Jacobian rows are
+    rescaled by sqrt(rho') per loss block, as the LM weights them, and the
+    variance uses the robust cost. ``scale_by_variance`` multiplies by
+    ssr / max(1, m - n) with n the ambient parameter count and m
+    ``num_residuals`` (a scalar or a (B,) tensor of valid rows; default all
+    rows). ``jac_r``: optional precomputed (r, jac). Returns (cov (B, a, a),
+    ok (B,)), ok read before the variance scaling.
+    """
+    dtype, device = x.dtype, x.device
+    b = x.shape[0]
+    tan_free = _tan_free(manifold, free_mask, b, dtype, device)
+    if jac_r is not None:
+        r, jac = jac_r
+    elif jac_fn is not None:
+        r, jac = residual_fn(x, *data), jac_fn(x, *data)
+    else:
+        r, jac = tangent_jacobian(residual_fn, manifold, x, data)
+    jac = jac * tan_free[:, None, :]
+    ssr = torch.sum(r * r, dim=-1)
+    if huber_delta > 0:
+        blocks = _loss_blocks(r.shape[-1], block_ids, num_blocks, device)
+        w, robust_cost = _robust_weights(r, blocks, num_blocks if block_ids is not None else 1, huber_delta)
+        jac = jac * torch.sqrt(w)[..., None]
+        ssr = 2.0 * robust_cost
+    a = jac.transpose(-1, -2) @ jac + torch.diag_embed(1.0 - tan_free)
+    c_t = linalg.spd_inverse(a) * tan_free[:, :, None] * tan_free[:, None, :]
+    d = manifold.lift_jacobian(x)
+    cov = d @ c_t @ d.transpose(-1, -2)
+    ok = torch.isfinite(cov).all(dim=-1).all(dim=-1)
+    if scale_by_variance:
+        m = r.shape[-1] if num_residuals is None else num_residuals
+        dof = torch.clamp(torch.as_tensor(m, dtype=dtype, device=device) - manifold.ambient_dim, min=1.0)
+        cov = cov * (ssr / dof)[:, None, None]
+    return cov, ok
 
 
 def covariance_from_tangent(c_t, x, manifold: ProductManifold, free_mask=None):

@@ -1,4 +1,14 @@
 from . import batched
-from .batched import extrinsics_batch, intrinsics_batch, intrinsics_facade_batch, reprojection_rms_batch
+from .batched import (
+    extrinsics_batch,
+    handeye_batch,
+    homography_batch,
+    intrinsics_batch,
+    intrinsics_facade_batch,
+    reprojection_rms_batch,
+)
 
-__all__ = ["batched", "extrinsics_batch", "intrinsics_batch", "intrinsics_facade_batch", "reprojection_rms_batch"]
+__all__ = [
+    "batched", "extrinsics_batch", "handeye_batch", "homography_batch", "intrinsics_batch",
+    "intrinsics_facade_batch", "reprojection_rms_batch",
+]

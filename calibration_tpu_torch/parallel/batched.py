@@ -1,5 +1,5 @@
-"""Batched planar-intrinsics and extrinsics entry points (port of the
-intrinsics and extrinsics parts of ``calibration_tpu/parallel/batched.py``).
+"""Batched homography, planar-intrinsics, extrinsics and hand-eye entry
+points (port of those parts of ``calibration_tpu/parallel/batched.py``).
 
 The reference lifts single-problem cores over a problem axis with
 ``jax.vmap`` inside one jitted program. Here every core already takes a
@@ -15,9 +15,13 @@ from typing import Optional
 import torch
 
 from ..models.registry import PINHOLE, get_model
-from ..ops import intrinsics_linear, planarpose
+from ..ops import handeye_linear, intrinsics_linear, planarpose
+from ..ops import homography as H
 from ..ops.projection_residuals import projection_rms_f32
+from ..optim.core import OptimOptions
 from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
+from ..optim.handeye import optimize_handeye_device
+from ..optim.homography import homography_covariance_device, optimize_homography_device
 from ..optim.intrinsics import (
     IntrinsicsOptimOptions,
     intrinsics_covariance_device,
@@ -35,6 +39,15 @@ TWO_PHASE_MIN_BATCH = 64
 # EXTRINSICS_PHASE_MID more for the unconverged lanes, then the rest.
 EXTRINSICS_PHASE_CAP = 5
 EXTRINSICS_PHASE_MID = 8
+# The homography batch runs every lane up to HOMOG_PHASE_CAP iterations,
+# then only the unconverged lanes. Measured on an H100 (tools/
+# profile_torch_cells.py, config 1 at B = 8192, 7 interleaved warm calls
+# per setting): medians 36.0 / 35.8 / 35.1 / 33.3 / 34.5 ms at caps 2-6
+# and 32.9 ms in one phase. The host-driven loop costs the same per trial
+# at any width, so a continuation only adds its restart; 5 is config 1's
+# largest trial count, so its phase B is empty. (The reference's TPU-tuned
+# cap is 4; its CALIB_HOMOG_PHASE_CAP override is not ported.)
+HOMOG_PHASE_CAP = 5
 
 
 def phase_schedule(total: int, caps: tuple) -> tuple:
@@ -291,3 +304,73 @@ def extrinsics_batch(
     cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
     cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
     return lm_m, intr_m, c_m, r_m, cov, cov_ok
+
+
+def _homog_seed(obj, uv, mask, seed_precision: str):
+    """The DLT seed of ``homography_batch``, in float64 or, opted in,
+    float32 (the float64 LM it feeds re-converges to the same minimum)."""
+    if seed_precision == "f32":
+        f32 = torch.float32
+        return H.estimate_homography_dlt(obj.to(f32), uv.to(f32), mask.to(f32)).to(obj.dtype)
+    if seed_precision != "f64":
+        raise ValueError(f"unknown seed_precision '{seed_precision}' (f64|f32)")
+    return H.estimate_homography_dlt(obj, uv, mask)
+
+
+def _homography_phased_solve(options: OptimOptions):
+    def solve(iters, obj, uv, mask, h0):
+        op = dataclasses.replace(options, compute_covariance=False, max_iterations=iters)
+        return optimize_homography_device(h0, obj, uv, mask, options=op)
+
+    return solve
+
+
+def homography_batch(
+    obj_xy, img_uv, mask=None, options: OptimOptions = OptimOptions(), two_phase: bool | None = None,
+    seed_precision: str = "f64",
+):
+    """DLT seed + LM refine for a batch of homography problems.
+
+    obj_xy/img_uv: (B, N, 2) float64; mask: (B, N). Returns (LMOutput,
+    H (B, 3, 3), cov (B, 8, 8), cov_ok (B,)).
+
+    two_phase: every lane up to HOMOG_PHASE_CAP iterations, then the
+    unconverged lanes for the rest of the budget (see ``_phased_lm``; the
+    budget is never exceeded); covariance is one final pass over the merged
+    solution. None -> on for B >= TWO_PHASE_MIN_BATCH.
+
+    seed_precision: "f64" (default) or "f32" for the DLT seed (the
+    reference's default is f32; its seed is equivalence-tested only on
+    well-conditioned data).
+    """
+    dtype = obj_xy.dtype
+    mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
+    init_h = _homog_seed(obj_xy, img_uv, mask, seed_precision)
+    b = obj_xy.shape[0]
+    if two_phase is None:
+        two_phase = b >= TWO_PHASE_MIN_BATCH
+    if not two_phase:
+        return optimize_homography_device(init_h, obj_xy, img_uv, mask, options=options)
+    lm_m, (h_m,) = _phased_lm(
+        _homography_phased_solve(options), (obj_xy, img_uv, mask), (init_h,),
+        phase_schedule(options.max_iterations, (HOMOG_PHASE_CAP,)),
+    )
+    if options.compute_covariance:
+        cov, cov_ok = homography_covariance_device(h_m, obj_xy, img_uv, mask, options)
+    else:
+        cov = torch.zeros((b, 8, 8), dtype=dtype, device=obj_xy.device)
+        cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
+    return lm_m, h_m, cov, cov_ok
+
+
+def handeye_batch(
+    base_se3_gripper, cam_se3_target, options: OptimOptions = OptimOptions(), min_angle_deg: float = 1.0,
+    rot_residual: str = "quat",
+):
+    """Tsai-Lenz DLT seed + AX = XB LM for a batch of rigs: one pair build
+    feeds both. base_se3_gripper/cam_se3_target: (B, P, 4, 4).
+    rot_residual: "quat" (default) or "log" (see optimize_handeye_device).
+    Returns the optimize_handeye_device tuple."""
+    pairs = handeye_linear.build_all_pairs(base_se3_gripper, cam_se3_target, min_angle_deg)
+    init, _ = handeye_linear.estimate_handeye_dlt_pairs(pairs)
+    return optimize_handeye_device(pairs, init, options, rot_residual=rot_residual)

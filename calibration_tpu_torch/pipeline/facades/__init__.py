@@ -1,4 +1,4 @@
-from . import extrinsics, intrinsics
+from . import extrinsics, handeye, intrinsics
 from .extrinsics import (
     MultiCameraCalibrationFacade,
     MultiCameraCalibrationRunResult,
@@ -11,6 +11,7 @@ from .extrinsics import (
     StereoPairConfig,
     StereoViewSelection,
 )
+from .handeye import HandEyeObservationConfig, HandEyePipelineConfig, HandEyeRigConfig
 from .intrinsics import (
     CameraConfig,
     IntrinsicCalibrationConfig,

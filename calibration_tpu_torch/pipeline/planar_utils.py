@@ -1,18 +1,17 @@
 """Stage-internal helpers (reference: src/pipeline/detail/planar_utils.{h,cpp}).
 
-The helpers of ``calibration_tpu/pipeline/planar_utils.py`` that the
-planar-intrinsics path uses, copied: that module is JAX-free but cannot be
-imported without importing JAX (``calibration_tpu/__init__.py`` imports it).
-The rig and sensor-index helpers come with the stages that use them.
+A copy of ``calibration_tpu/pipeline/planar_utils.py``, which is JAX-free
+but cannot be imported without importing JAX (``calibration_tpu/__init__.py``
+imports it).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .dataset import PlanarImageDetections
+from .dataset import PlanarDetections, PlanarImageDetections
 
 
 def find_camera_config(cfg, camera_id: str):
@@ -21,6 +20,32 @@ def find_camera_config(cfg, camera_id: str):
         if cam.camera_id == camera_id:
             return cam
     return None
+
+
+def find_handeye_rig(cfg, rig_id: str):
+    """planar_utils.cpp:75-81."""
+    for rig in cfg.rigs:
+        if rig.rig_id == rig_id:
+            return rig
+    return None
+
+
+class SensorDetectionsIndex:
+    """sensor_id -> image-file -> detections lookup (planar_utils.cpp:37-52)."""
+
+    def __init__(self, detections: PlanarDetections):
+        self.detections = detections
+        self.image_lookup: Dict[str, PlanarImageDetections] = {
+            img.file: img for img in detections.images
+        }
+
+
+def build_sensor_index(detections: List[PlanarDetections]) -> Dict[str, SensorDetectionsIndex]:
+    index: Dict[str, SensorDetectionsIndex] = {}
+    for det in detections:
+        if det.sensor_id:
+            index[det.sensor_id] = SensorDetectionsIndex(det)
+    return index
 
 
 def make_planar_arrays(image: PlanarImageDetections) -> Tuple[np.ndarray, np.ndarray]:

@@ -47,7 +47,26 @@
    recheck agrees with the f64 view errors on every camera, and card/CPU parity
    of the artifacts on the first 4 rigs (``tests/torch_helpers``' report
    bounds).
-9. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+9. Solves the homography benchmark set (BASELINE config 1: B = 8192, 24
+   points, 0.1 px noise, seed 11, max_iterations 50, covariance off, the
+   float64 DLT seed, phased) through ``homography_batch`` on the card:
+   every lane converged, the mean residual RMS in HOMOG_RMS_PX, card vs CPU
+   transfer cost within 1e-7 relative on 32 lanes, first and warm call in
+   solves/s.
+10. Solves the hand-eye benchmark set (BASELINE config 4: B = 256 rigs, 20
+   noise-free robot poses, seed 17, max_iterations 50, covariance off)
+   through ``handeye_batch`` on the card: every rig converged, X within
+   1e-7 m / 1e-5 deg of the truth, card vs CPU on 16 rigs (X within 1e-9,
+   the same counters), warm rigs/s.
+11. Drives the bundle_pipeline app (``--device cuda``, no bundle section:
+   intrinsics, then hand-eye) on 64 robot cells of the JAX package's
+   pipeline fleet (12 observations of an 8x11 grid, 0.05 px noise, seed
+   29; ``write_handeye_fleet``): first and warm call timed by layer
+   (ingest, intrinsics, hand_eye, writing); every rig ``ok``, g_se3_c
+   within HE_POSE_TOL of the truth, K1 launched with no QA warning,
+   card/CPU artifacts on 4 rigs within the report bounds; then the
+   homography app on the card (DLT and RANSAC input) against the CPU app.
+12. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
    time of the bare launcher captured in a CUDA graph (L2-warm on one input
    set, L2-cold over rotating sets), the kernel's duration as
    torch.profiler reads it, the wrapper's host time per call, the bound and
@@ -85,13 +104,15 @@ import numpy as np
 import torch
 
 from calibration_tpu_torch import native
+from calibration_tpu_torch.apps import bundle_pipeline, homography as homography_app
 from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
 from calibration_tpu_torch.kernels import _build
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac
 from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import batched, extrinsics_batch, intrinsics_facade_batch
+from calibration_tpu_torch.parallel import batched, extrinsics_batch, handeye_batch, homography_batch
+from calibration_tpu_torch.parallel import intrinsics_facade_batch
 from calibration_tpu_torch.pipeline import loaders, reports, stages
 from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
@@ -123,6 +144,24 @@ PIPELINE_PARITY_RIGS = 4
 # data gives 1e-14 m): the bound is about 1.3x that.
 POSE_TOL_M = 0.02
 POSE_TOL_DEG = 2.0
+HOMOG_LANES = 8192  # config 1's batch
+HOMOG_PARITY_LANES = 32
+HOMOG_OPTS = OptimOptions(max_iterations=50, compute_covariance=False)
+HOMOG_RMS_PX = (0.07, 0.11)  # per-coordinate residual RMS for 0.1 px noise
+HANDEYE_RIGS = 256  # config 4's batch
+HANDEYE_PARITY_RIGS = 16
+HANDEYE_OPTS = OptimOptions(max_iterations=50, compute_covariance=False)
+# config 4's poses carry no noise: X within the arccos metric's floor
+HANDEYE_TOL_DEG = 1e-5
+HANDEYE_TOL_M = 1e-7
+HE_PIPELINE_RIGS = 64  # the pipeline fleet size of the JAX package's bench_all.py
+HE_PIPELINE_PARITY_RIGS = 4
+# g_se3_c vs the truth on every rig of the hand-eye pipeline (12 planar
+# poses from the linear seed, 0.05 px noise): about 1.3x the JAX
+# reference's own worst rig (CPU, f64) on the same 64 generated rigs,
+# 41.8 mm / 2.34 deg
+HE_POSE_TOL_M = 0.055
+HE_POSE_TOL_DEG = 3.1
 
 
 class SmokeFailure(RuntimeError):
@@ -466,6 +505,48 @@ def stereo_problems(batch, views=8, rows=5, cols=7, noise=0.2, seed=13):
         obj=np.tile(obj[None, None, None], (batch, views, 2, 1, 1)), uv=uv,
         intr0=np.tile(intr[None, None], (batch, 2, 1)), c0=c0, r0=rts.copy(), rel_gt=rel_gt,
     )
+
+
+def homography_problems(batch, n=24, noise=0.1, seed=11):
+    """The JAX package's homography benchmark set (its
+    benchmarks/problems.py::homography_problems, BASELINE config 1):
+    (true H (B, 3, 3), src (B, N, 2), dst (B, N, 2))."""
+    rng = np.random.default_rng(seed)
+    hs = np.tile(np.eye(3), (batch, 1, 1))
+    hs[:, 0, 0] = 1.0 + rng.uniform(-0.2, 0.2, batch)
+    hs[:, 1, 1] = 1.0 + rng.uniform(-0.2, 0.2, batch)
+    hs[:, 0, 1] = rng.uniform(-0.05, 0.05, batch)
+    hs[:, 1, 0] = rng.uniform(-0.05, 0.05, batch)
+    hs[:, :2, 2] = rng.uniform(-10, 10, (batch, 2))
+    hs[:, 2, :2] = rng.uniform(-2e-4, 2e-4, (batch, 2))
+    src = rng.uniform(-2, 2, (batch, n, 2))
+    ph = np.concatenate([src, np.ones((batch, n, 1))], -1) @ np.swapaxes(hs, 1, 2)
+    dst = ph[..., :2] / ph[..., 2:] + rng.normal(0, noise, (batch, n, 2))
+    return hs, src, dst
+
+
+def handeye_problems(batch, num_poses=20, seed=17):
+    """The JAX package's hand-eye benchmark set (its
+    benchmarks/problems.py::handeye_problems, BASELINE config 4), poses
+    without noise: (g_gt (B, 4, 4), base_se3_gripper (B, P, 4, 4),
+    cam_se3_target (B, P, 4, 4)). The camera views are drawn first and the
+    gripper poses derived, so the target stays in front of the camera."""
+    rng = np.random.default_rng(seed)
+    g_gts, bgs, cts = [], [], []
+    for i in range(batch):
+        g = _pose([0.1 + 1e-3 * i, -0.2, 0.15], [0.02, -0.03, 0.05])
+        bt = _pose([0.05, 0.03, -0.08], [0.4, -0.1, 0.2])
+        bg, ct = [], []
+        for _ in range(num_poses):
+            ang = rng.uniform(-0.4, 0.4, 3)
+            tr = rng.uniform(-0.08, 0.08, 3) + np.array([0.0, 0.0, 0.7])
+            c = _pose(ang, tr)
+            bg.append(bt @ np.linalg.inv(c) @ np.linalg.inv(g))
+            ct.append(c)
+        g_gts.append(g)
+        bgs.append(np.stack(bg))
+        cts.append(np.stack(ct))
+    return np.stack(g_gts), np.stack(bgs), np.stack(cts)
 
 
 STEREO_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
@@ -859,6 +940,235 @@ def app_phase(card: str) -> int:
     return launches
 
 
+def residual_rms(h, src, dst):
+    """Per-lane per-coordinate transfer residual RMS (numpy, float64)."""
+    ph = np.concatenate([src, np.ones(src.shape[:-1] + (1,))], -1) @ np.swapaxes(h, -1, -2)
+    r = ph[..., :2] / ph[..., 2:] - dst
+    return np.sqrt(np.mean(r * r, axis=(-2, -1)))
+
+
+def transfer_cost(h, src, dst):
+    """bench_all.py's shared numpy evaluator of a homography's squared
+    transfer error, per lane."""
+    ph = np.concatenate([src, np.ones(src.shape[:-1] + (1,))], -1) @ np.swapaxes(h, -1, -2)
+    r = ph[..., :2] / ph[..., 2:] - dst
+    return np.sum(r * r, axis=(-2, -1))
+
+
+def timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def homography_phase(dev, card):
+    """Config 1 through homography_batch on the card (phased, f64 seed):
+    first and warm call, checks, card/CPU transfer-cost parity on the first
+    HOMOG_PARITY_LANES lanes (same schedule). The first-phase cap sweep is
+    tools/profile_torch_cells.py's."""
+    _, src, dst = homography_problems(HOMOG_LANES)
+    s_d, d_d = torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)
+    run = functools.partial(homography_batch, s_d, d_d, options=HOMOG_OPTS)
+    out, first_s = timed(run, dev)
+    lm, hm = out[0], out[1].cpu().numpy()
+    check(bool(lm.success.all()), f"all {HOMOG_LANES} homographies converged")
+    rms = float(residual_rms(hm, src, dst).mean())
+    lin = np.bincount(lm.linearizations.cpu().numpy()).tolist()
+    print(f"[smoke] homography B={HOMOG_LANES}: mean residual RMS {rms!r} px; linearizations histogram {lin}; "
+          f"trials max {int(lm.iterations.max())}")
+    check(HOMOG_RMS_PX[0] <= rms <= HOMOG_RMS_PX[1], f"mean residual RMS within {list(HOMOG_RMS_PX)} px")
+    _, warm_s = timed(run, dev)
+    print(f"[smoke] homography B={HOMOG_LANES}: first call {first_s!r} s, warm call {warm_s!r} s = "
+          f"{HOMOG_LANES / warm_s!r} solves/s on {card}")
+    k = HOMOG_PARITY_LANES
+    cpu = homography_batch(torch.as_tensor(src[:k]), torch.as_tensor(dst[:k]), options=HOMOG_OPTS, two_phase=True)
+    c_card, c_cpu = transfer_cost(hm[:k], src[:k], dst[:k]), transfer_cost(cpu[1].numpy(), src[:k], dst[:k])
+    rel = float((np.abs(c_card - c_cpu) / c_cpu).max())
+    print(f"[smoke] homography card vs CPU transfer cost, first {k} lanes: max rel diff {rel!r}")
+    check(rel <= COST_PARITY_RTOL, f"homography card/CPU cost parity within {COST_PARITY_RTOL} relative")
+    return warm_s
+
+
+def handeye_phase(dev, card):
+    """Config 4 through handeye_batch on the card: checks, card/CPU parity
+    on the first HANDEYE_PARITY_RIGS rigs, warm rigs/s."""
+    g_gt, bg, ct = handeye_problems(HANDEYE_RIGS)
+    bg_d, ct_d = torch.as_tensor(bg, device=dev), torch.as_tensor(ct, device=dev)
+    run = functools.partial(handeye_batch, bg_d, ct_d, options=HANDEYE_OPTS)
+    out, first_s = timed(run, dev)
+    lm, pose = out[0], out[1].cpu().numpy()
+    check(bool(lm.success.all()), f"all {HANDEYE_RIGS} hand-eye rigs converged")
+    tra, rot = pose_errors(pose, g_gt)
+    print(f"[smoke] hand-eye B={HANDEYE_RIGS}: X vs truth max {tra!r} m, {rot!r} deg; linearizations "
+          f"{np.bincount(lm.linearizations.cpu().numpy()).tolist()}")
+    check(tra <= HANDEYE_TOL_M and rot <= HANDEYE_TOL_DEG,
+          f"X within {HANDEYE_TOL_M} m and {HANDEYE_TOL_DEG} deg of the truth on every rig")
+    _, warm_s = timed(run, dev)
+    print(f"[smoke] hand-eye B={HANDEYE_RIGS}: first call {first_s!r} s, warm call {warm_s!r} s = "
+          f"{HANDEYE_RIGS / warm_s!r} rigs/s on {card}")
+    k = HANDEYE_PARITY_RIGS
+    cpu = handeye_batch(torch.as_tensor(bg[:k]), torch.as_tensor(ct[:k]), options=HANDEYE_OPTS)
+    diff = float(np.abs(pose[:k] - cpu[1].numpy()).max())
+    same = all(torch.equal(getattr(lm, f)[:k].cpu(), getattr(cpu[0], f)) for f in ("iterations", "linearizations"))
+    print(f"[smoke] hand-eye card vs CPU, first {k} rigs: max |X diff| {diff!r}, same counters {same}")
+    check(diff <= 1e-9 and same, "hand-eye card/CPU parity: X within 1e-9, the same counters")
+    return warm_s
+
+
+def write_handeye_fleet(directory, rigs, num_obs=12, rows=8, cols=11, noise=0.05, seed=29):
+    """The JAX package's hand-eye pipeline fleet (its
+    benchmarks/pipeline_fleet.py::make_fleet) without its bundle section:
+    ``rigs`` robot cells, each one camera with its own hand-eye transform
+    and base -> target pose and ``num_obs`` observations, written as
+    detections files, a planar-intrinsics config and a pipeline input. One
+    generator runs over the rigs in order, so a rig's data does not depend
+    on ``rigs``. Returns dict(obj, uv, bg, ct_gt (R, O, ...), intr, g_gt,
+    bt_gt (R, 4, 4), input_path)."""
+    out = Path(directory)
+    rng = np.random.default_rng(seed)
+    obj = _grid(rows, cols, 0.03)
+    n = obj.shape[0]
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -5e-5])
+    arrays = {k: np.zeros((rigs, num_obs) + s) for k, s in (("uv", (n, 2)), ("bg", (4, 4)), ("ct_gt", (4, 4)))}
+    g_b, bt_b = np.zeros((rigs, 4, 4)), np.zeros((rigs, 4, 4))
+    sensors, cameras, he_rigs = [], [], []
+    for r in range(rigs):
+        sensor = f"cam{r}"
+        g = _pose(rng.uniform(-0.3, 0.3, 3), rng.uniform(-0.06, 0.06, 3))
+        bt = _pose(rng.uniform(-0.2, 0.2, 3), [0.4, -0.1, 0.2] + rng.uniform(-0.05, 0.05, 3))
+        g_b[r], bt_b[r] = g, bt
+        obs = []
+        for i in range(num_obs):
+            ct = _pose(rng.uniform(-0.4, 0.4, 3), rng.uniform(-0.08, 0.08, 3) + [0, 0, 0.8])
+            bg = bt @ np.linalg.inv(ct) @ np.linalg.inv(g)
+            arrays["uv"][r, i] = _render(intr, ct[None], obj, 0.0, rng)[0] + rng.normal(0, noise, (n, 2))
+            arrays["bg"][r, i], arrays["ct_gt"][r, i] = bg, ct
+            obs.append({"view_id": f"v{i}", "base_se3_gripper": bg.tolist(), "images": {sensor: f"{sensor}_he_{i:03d}.png"}})
+        payload = detections_payload(sensor, obj, arrays["uv"][r])
+        for i, img in enumerate(payload["images"]):
+            img["file"] = f"{sensor}_he_{i:03d}.png"
+        (out / f"detections_{sensor}.json").write_text(json.dumps(payload))
+        sensors.append({"sensor_id": sensor, "path": f"detections_{sensor}.json"})
+        cameras.append({"camera_id": sensor, "model": "pinhole_brown_conrady", "image_size": [640, 480]})
+        he_rigs.append({"rig_id": f"rig{r}", "sensors": [sensor], "observations": obs,
+                        "options": {"huber_delta": 1.0}, "min_angle_deg": 1.0})
+    (out / "planar_intrinsics_config.json").write_text(json.dumps({
+        "algorithm": "planar",
+        "options": {"optim_options": {"core": {"huber_delta": 1.0, "max_iterations": 200}},
+                    "min_corners_per_view": 20, "refine": True},
+        "cameras": cameras,
+    }))
+    input_path = out / "handeye_input.json"
+    input_path.write_text(json.dumps({
+        "planar_intrinsics_config": "planar_intrinsics_config.json", "planar_detections": sensors,
+        "hand_eye": {"rigs": he_rigs},
+    }))
+    return dict(obj=np.tile(obj[None, None], (rigs, num_obs, 1, 1)), **arrays, intr=intr, g_gt=g_b, bt_gt=bt_b,
+                input_path=str(input_path))
+
+
+HANDEYE_LAYERS = (
+    (loaders.JsonPlanarDatasetLoader, "load", "ingest"),
+    (stages.IntrinsicStage, "run", "intrinsics"),
+    (stages.HandEyeCalibrationStage, "run", "hand_eye"),
+    (native, "dumps_fast", "writing"),
+)
+
+
+def run_handeye_pipeline(input_path, out, device):
+    """One bundle_pipeline call (no bundle section); returns (artifacts
+    JSON, wall s, seconds by layer). Its own output goes to a buffer, shown
+    on failure."""
+    log = io.StringIO()
+    with layer_timers(device, HANDEYE_LAYERS) as seconds, contextlib.redirect_stdout(log), \
+            contextlib.redirect_stderr(log):
+        t0 = time.perf_counter()
+        rc = bundle_pipeline.main(["--input", input_path, "--output", str(out), "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        print(log.getvalue()[-4000:])
+    check(rc == 0, f"the hand-eye pipeline app exits 0 on {device}")
+    return json.loads(Path(out).read_text()), wall, seconds
+
+
+def check_handeye_artifacts(art, fleet):
+    rigs = fleet["g_gt"].shape[0]
+    summary = {s["name"]: s for s in art["pipeline_summary"]["stages"]}
+    cams = summary["intrinsics"]["cameras"]
+    check(len(cams) == rigs and all(c["warnings"]["rms_check"] == 0 for c in cams),
+          f"intrinsics stage: kernel QA recheck within {QA_ATOL_PX} px of view_errors on all {rigs} cameras")
+    statuses = [art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["status"] for r in range(rigs)]
+    check(statuses == ["ok"] * rigs and summary["hand_eye"]["status"] == "ok", f"all {rigs} hand-eye rigs ok")
+    g = np.array([art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["g_se3_c"] for r in range(rigs)])
+    tra, rot = pose_errors(g, fleet["g_gt"])
+    print(f"[smoke] hand-eye pipeline: g_se3_c vs truth max {tra!r} m, {rot!r} deg")
+    check(tra <= HE_POSE_TOL_M and rot <= HE_POSE_TOL_DEG,
+          f"g_se3_c within {HE_POSE_TOL_M} m and {HE_POSE_TOL_DEG} deg of the truth for every rig")
+
+
+def homography_app_check(directory, card):
+    """The homography app on the card on the first config-1 problem, with
+    and without a RANSAC section: exit 0, the refine converged, its
+    homography within 1e-9 of the CPU app's."""
+    _, src, dst = homography_problems(1)
+    corr = [{"object_xy": s_.tolist(), "image_uv": d_.tolist()} for s_, d_ in zip(src[0], dst[0])]
+    for name, extra in (("dlt", {}), ("ransac", {"ransac": {"thresh": 1.0}})):
+        path = Path(directory) / f"homography_{name}.json"
+        path.write_text(json.dumps({"correspondences": corr, "optimize": True, **extra}))
+        outs = {}
+        for device in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = homography_app.main(["--input", str(path), "-o", str(path.with_suffix(f".{device}.out")),
+                                          "--device", device])
+            check(rc == 0, f"the homography app ({name}) exits 0 on {device}")
+            outs[device] = json.loads(path.with_suffix(f".{device}.out").read_text())
+        diff = float(np.abs(np.array(outs["cuda"]["optimized"]["homography"])
+                            - np.array(outs["cpu"]["optimized"]["homography"])).max())
+        check(outs["cuda"]["optimized"]["core"]["success"] and diff <= 1e-9,
+              f"homography app ({name}) on {card}: refined, within 1e-9 of the CPU app ({diff!r})")
+
+
+def handeye_pipeline_phase(card: str) -> int:
+    """The bundle_pipeline app (hand-eye stage, no bundle section) over
+    HE_PIPELINE_RIGS robot cells on the card, then card/CPU parity on
+    HE_PIPELINE_PARITY_RIGS rigs, then the homography app. Returns the K1
+    launches of the app's first call, the path's counted run."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_helpers import assert_reports_match
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (Path(tmp) / "fleet").mkdir()
+        fleet = write_handeye_fleet(Path(tmp) / "fleet", HE_PIPELINE_RIGS)
+        print(f"[smoke] hand-eye pipeline: wrote {HE_PIPELINE_RIGS} detections files in "
+              f"{time.perf_counter() - t0!r} s")
+        launches = None
+        for call in ("first", "warm"):
+            zero_launches()
+            art, wall, seconds = run_handeye_pipeline(fleet["input_path"], Path(tmp) / f"he_{call}.json", "cuda")
+            if launches is None:
+                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
+            layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
+            print(f"[smoke] hand-eye pipeline {call} call: {wall!r} s = {HE_PIPELINE_RIGS / wall!r} rigs/s on "
+                  f"{card}; {layers}; other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}")
+            check_handeye_artifacts(art, fleet)
+            check(pr.launches["rms"] > 0, "the hand-eye pipeline's intrinsics stage launched K1 in RMS mode")
+
+        k = HE_PIPELINE_PARITY_RIGS
+        (Path(tmp) / "small").mkdir()
+        small = write_handeye_fleet(Path(tmp) / "small", k)
+        cpu, _, _ = run_handeye_pipeline(small["input_path"], Path(tmp) / "he_cpu.json", "cpu")
+        card_k, _, _ = run_handeye_pipeline(small["input_path"], Path(tmp) / "he_card4.json", "cuda")
+        assert_reports_match(without_durations(cpu), without_durations(card_k))
+        print(f"[smoke] ok: hand-eye pipeline card vs CPU artifacts on {k} rigs within the report bounds")
+        homography_app_check(tmp, card)
+    return launches
+
+
 def zero_launches() -> None:
     for mode in pr.launches:
         pr.launches[mode] = 0
@@ -982,6 +1292,9 @@ def main() -> int:
     rms_launches = facade_launches["rms"] + app_phase(card)
     stereo_phase(dev, card)
     rms_launches += pipeline_phase(card)
+    homography_phase(dev, card)
+    handeye_phase(dev, card)
+    rms_launches += handeye_pipeline_phase(card)
 
     # last, so that the profiler's device tracing (CUPTI) is off during the
     # end-to-end phases above

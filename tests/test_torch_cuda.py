@@ -2,8 +2,11 @@
 in both modes (residuals, per-view RMS) against its plain versions, the facade on the card against the same facade
 on the CPU, the batched RANSAC prefilter on the card, the
 planar_intrinsics app on the card against the app on the CPU, the
-extrinsics batch on the card against the CPU, and the
-intrinsic_extrinsic_pipeline app on the card against the app on the CPU.
+extrinsics batch on the card against the CPU, the
+intrinsic_extrinsic_pipeline app on the card against the app on the CPU,
+and the dense LM's users (homography_batch, handeye_batch, the dense
+intrinsics solver, the homography and bundle_pipeline apps) on the card
+against the CPU.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -17,12 +20,14 @@ import pytest
 import torch
 
 import chip_smoke
+from calibration_tpu_torch.apps import bundle_pipeline, homography as homography_app
 from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac, se3
 from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import extrinsics_batch, intrinsics_facade_batch
+from calibration_tpu_torch.optim import intrinsics as toi
+from calibration_tpu_torch.parallel import extrinsics_batch, handeye_batch, homography_batch, intrinsics_facade_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -221,6 +226,96 @@ def test_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
         before = pr.launches["rms"]
         argv = ["--input", "examples/data/pipeline_input.json", "--output", str(out), "--device", device]
         assert intrinsic_extrinsic_pipeline.main(argv) == 0
+        if device == "cuda":
+            assert pr.launches["rms"] > before
+        arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
+    assert_reports_match(arts[1], arts[0])
+
+
+def _lm_equal(gpu, cpu, cost_rtol=1e-7):
+    assert torch.equal(gpu.linearizations.cpu(), cpu.linearizations)
+    assert torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    assert float(((gpu.cost.cpu() - cpu.cost).abs() / cpu.cost.abs().clamp(min=1e-300)).max()) <= cost_rtol
+
+
+@pytest.mark.parametrize("two_phase", [False, True], ids=["one_phase", "phased"])
+def test_homography_batch_on_card_matches_cpu(cuda_device, two_phase):
+    """96 lanes of the config-1 set, covariance on: the same counters, cost
+    1e-7 relative, H 1e-9, covariance 1e-6 of its largest entry."""
+    _, src, dst = chip_smoke.homography_problems(96)
+    opts = OptimOptions(max_iterations=50)
+    gpu = homography_batch(torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device),
+                           options=opts, two_phase=two_phase)
+    cpu = homography_batch(torch.as_tensor(src), torch.as_tensor(dst), options=opts, two_phase=two_phase)
+    assert bool(gpu[0].success.all()) and bool(gpu[3].all())
+    _lm_equal(gpu[0], cpu[0])
+    assert float((gpu[1].cpu() - cpu[1]).abs().max()) <= 1e-9
+    scale = cpu[2].abs().amax(dim=(-2, -1))
+    assert bool(((gpu[2].cpu() - cpu[2]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("rot_residual", ["quat", "log"])
+def test_handeye_batch_on_card_matches_cpu(cuda_device, rot_residual):
+    """16 rigs of the config-4 set with 2 mm camera noise, covariance on."""
+    _, bg, ct = chip_smoke.handeye_problems(16)
+    ct = ct.copy()
+    ct[..., :3, 3] += np.random.default_rng(1).normal(0, 2e-3, ct[..., :3, 3].shape)
+    opts = OptimOptions(max_iterations=50)
+    gpu = handeye_batch(torch.as_tensor(bg, device=cuda_device), torch.as_tensor(ct, device=cuda_device),
+                        options=opts, rot_residual=rot_residual)
+    cpu = handeye_batch(torch.as_tensor(bg), torch.as_tensor(ct), options=opts, rot_residual=rot_residual)
+    assert bool(gpu[0].success.all())
+    _lm_equal(gpu[0], cpu[0])
+    assert float((gpu[1].cpu() - cpu[1]).abs().max()) <= 1e-9
+    scale = cpu[2].abs().amax(dim=(-2, -1))
+    assert bool(((gpu[2].cpu() - cpu[2]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+def test_dense_intrinsics_on_card_matches_cpu(cuda_device):
+    """The dense engine with forward-mode Jacobians over a quaternion
+    manifold (solver="dense"), 4 cameras, covariance on."""
+    obj, uv, intr = chip_smoke.make_problems(4, views=6)
+    ang = 2 * np.pi * np.arange(6)[None, :] / 6 + 0.05 * np.arange(4)[:, None]
+    w = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.1 * np.sin(2 * ang)], axis=-1)
+    t = np.stack([0.06 * np.cos(ang), 0.06 * np.sin(ang), 0.9 + 0.08 * np.sin(ang)], axis=-1)
+    poses = np.tile(np.eye(4), (4, 6, 1, 1))
+    poses[..., :3, :3], poses[..., :3, 3] = chip_smoke._exp_so3(w), t
+    intr0 = np.tile(intr, (4, 1))
+    intr0[:, :4] += [8.0, -6.0, 4.0, -3.0]
+    intr0[:, 5:] = 0.0
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40))
+    args = (obj, uv, intr0, poses)
+    gpu = toi.optimize_intrinsics_device(*(torch.as_tensor(a, device=cuda_device) for a in args), opts=opts,
+                                         solver="dense")
+    cpu = toi.optimize_intrinsics_device(*(torch.as_tensor(a) for a in args), opts=opts, solver="dense")
+    assert bool(gpu[0].success.all()) and bool(gpu[5].all())
+    _lm_equal(gpu[0], cpu[0])
+    assert float(((gpu[1].cpu() - cpu[1]).abs() / cpu[1].abs().clamp(min=1e-3)).max()) <= 1e-6
+
+
+def test_homography_app_on_card_matches_cpu(cuda_device, tmp_path):
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        argv = ["--input", "examples/data/homography_input.json", "-o", str(out), "--device", device]
+        assert homography_app.main(argv) == 0
+        outs.append(json.loads(out.read_text()))
+    gpu, cpu = outs
+    assert gpu["estimated"]["inliers"] == cpu["estimated"]["inliers"]
+    assert np.abs(np.array(gpu["optimized"]["homography"]) - np.array(cpu["optimized"]["homography"])).max() <= 1e-9
+    assert abs(gpu["optimized"]["core"]["final_cost"] / cpu["optimized"]["core"]["final_cost"] - 1) <= 1e-7
+
+
+def test_bundle_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
+    """The hand-eye pipeline (no bundle section) on 3 generated robot
+    cells: the card's artifacts are the CPU's within the report bounds and
+    the intrinsics stage ran the kernel."""
+    fleet = chip_smoke.write_handeye_fleet(tmp_path, 3)
+    arts = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        before = pr.launches["rms"]
+        assert bundle_pipeline.main(["--input", fleet["input_path"], "--output", str(out), "--device", device]) == 0
         if device == "cuda":
             assert pr.launches["rms"] > before
         arts.append(chip_smoke.without_durations(json.loads(out.read_text())))

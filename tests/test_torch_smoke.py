@@ -1,7 +1,8 @@
-"""CPU rehearsal of ``chip_smoke.py``'s app, stereo and pipeline phases,
-which otherwise run only on the card: the same generators at a small size
-(4 sensors, 4 rigs), the apps and the solve on the CPU, and the phases' own
-checks, so a wrong path, shape or threshold shows here before a chip run.
+"""CPU rehearsal of ``chip_smoke.py``'s app, stereo, pipeline, homography,
+hand-eye and hand-eye pipeline phases, which otherwise run only on the
+card: the same generators at a small size (4 sensors, 4 rigs, 64 lanes),
+the apps and the solves on the CPU, and the phases' own checks, so a wrong
+path, shape or threshold shows here before a chip run.
 Also: the script refuses to run without a card, and outside the
 repository. No JAX is imported."""
 
@@ -142,3 +143,72 @@ def test_smoke_refuses_outside_the_repository(tmp_path):
         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
     )
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_homography_phase_checks_pass_on_cpu(monkeypatch):
+    """Config 1 at 64 lanes (phased, as on the card): every check holds
+    and the warm time comes back."""
+    monkeypatch.setattr(chip_smoke, "HOMOG_LANES", 64)
+    monkeypatch.setattr(chip_smoke, "HOMOG_PARITY_LANES", 4)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    assert chip_smoke.homography_phase(torch.device("cpu"), "cpu") > 0
+
+
+def test_handeye_phase_checks_pass_on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "HANDEYE_RIGS", 4)
+    monkeypatch.setattr(chip_smoke, "HANDEYE_PARITY_RIGS", 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    assert chip_smoke.handeye_phase(torch.device("cpu"), "cpu") > 0
+
+
+def test_handeye_pipeline_phase_checks_pass_on_cpu(tmp_path):
+    """The hand-eye pipeline on 4 rigs: every rig ok within the pose bound,
+    no QA warning, every layer timed; the timers come off again."""
+    fleet = chip_smoke.write_handeye_fleet(tmp_path, 4)
+    run = stages.HandEyeCalibrationStage.run
+    art, wall, seconds = chip_smoke.run_handeye_pipeline(fleet["input_path"], tmp_path / "a.json", "cpu")
+    assert stages.HandEyeCalibrationStage.run is run
+    chip_smoke.check_handeye_artifacts(art, fleet)
+    assert set(seconds) == {"ingest", "intrinsics", "hand_eye", "writing"}
+    assert 0 < sum(seconds.values()) <= wall
+
+
+@pytest.mark.parametrize("which", ["homography", "handeye", "handeye_fleet"])
+def test_generators_restate_the_benchmark_sets(which):
+    """chip_smoke's config-1 and config-4 sets and its hand-eye pipeline
+    fleet equal the JAX package's benchmarks/problems.py and
+    benchmarks/pipeline_fleet.py ones (the fleet without its bundle
+    section). Asked of a fresh interpreter: those modules set torch's
+    default dtype."""
+    code = {
+        "homography": "want, got = problems.homography_problems(5), chip_smoke.homography_problems(5)\n",
+        "handeye": "want, got = problems.handeye_problems(3, 7), chip_smoke.handeye_problems(3, 7)\n",
+        "handeye_fleet": (
+            "import json, tempfile, pathlib\n"
+            "from benchmarks import pipeline_fleet\n"
+            "a, b = tempfile.mkdtemp(), tempfile.mkdtemp()\n"
+            "w, g = pipeline_fleet.make_fleet(a, rigs=3), chip_smoke.write_handeye_fleet(b, 3)\n"
+            "keys = ['obj', 'uv', 'bg', 'ct_gt', 'intr', 'g_gt', 'bt_gt']\n"
+            "want, got = [w[k] for k in keys], [g[k] for k in keys]\n"
+            "jw, jg = json.loads(pathlib.Path(w['input_path']).read_text()), json.loads(pathlib.Path(g['input_path']).read_text())\n"
+            "assert jw.pop('bundle') and sorted(jw) == sorted(jg) and jw['planar_detections'] == jg['planar_detections']\n"
+            "bases = [[o.pop('base_se3_gripper') for r in j['hand_eye']['rigs'] for o in r['observations']] for j in (jw, jg)]\n"
+            "np.testing.assert_allclose(bases[1], bases[0], rtol=0, atol=1e-12)\n"
+            "assert jw['hand_eye'] == jg['hand_eye']\n"
+            "for name in ('planar_intrinsics_config.json', 'detections_cam1.json'):\n"
+            "    dw, dg = (json.loads((pathlib.Path(d) / name).read_text()) for d in (a, b))\n"
+            "    if 'images' in dw:\n"
+            "        pw, pg = dw.pop('images'), dg.pop('images')\n"
+            "        assert [i['file'] for i in pw] == [i['file'] for i in pg]\n"
+            "        np.testing.assert_allclose([[p['x'], p['y']] for i in pg for p in i['points']],\n"
+            "                                   [[p['x'], p['y']] for i in pw for p in i['points']], atol=1e-9)\n"
+            "        dw['metadata'] = dg['metadata'] = dw['params_hash'] = dg['params_hash'] = None\n"
+            "    assert dw == dg, name\n"
+        ),
+    }[which]
+    code = (
+        "import numpy as np, chip_smoke\nfrom benchmarks import problems\n" + code
+        + "for w, g in zip(want, got):\n    np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
