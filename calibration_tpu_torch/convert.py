@@ -16,6 +16,7 @@ import torch
 
 from .models.camera_matrix import CalibrationBounds
 from .ops.handeye_linear import MotionPairs
+from .optim.bundle import BundleOptions
 from .optim.core import OptimizerType, OptimOptions
 from .optim.extrinsics import ExtrinsicOptions
 from .optim.intrinsics import IntrinsicsOptimOptions
@@ -54,6 +55,13 @@ def extrinsic_options(opts) -> ExtrinsicOptions:
     return ExtrinsicOptions(**values)
 
 
+def bundle_options(opts) -> BundleOptions:
+    """The reference's ``BundleOptions`` -> the port's."""
+    values = _known_fields(BundleOptions, dataclasses.asdict(opts))
+    values["core"] = _optim_options(values["core"])
+    return BundleOptions(**values)
+
+
 def calibration_bounds(bounds) -> CalibrationBounds | None:
     """The reference's ``CalibrationBounds`` (or None) -> the port's."""
     if bounds is None:
@@ -61,23 +69,40 @@ def calibration_bounds(bounds) -> CalibrationBounds | None:
     return CalibrationBounds(**dataclasses.asdict(bounds))
 
 
+def _observations(rig):
+    from .pipeline.facades.handeye import HandEyeObservationConfig
+
+    return [
+        HandEyeObservationConfig(
+            view_id=o.view_id, base_se3_gripper=np.array(o.base_se3_gripper, float), images=dict(o.images)
+        )
+        for o in rig.observations
+    ]
+
+
 def handeye_pipeline_config(cfg):
     """The reference's ``HandEyePipelineConfig`` -> the port's."""
     # imported here: the pipeline package imports this module
-    from .pipeline.facades.handeye import HandEyeObservationConfig, HandEyePipelineConfig, HandEyeRigConfig
+    from .pipeline.facades.handeye import HandEyePipelineConfig, HandEyeRigConfig
 
     return HandEyePipelineConfig(rigs=[
         HandEyeRigConfig(
-            rig_id=rig.rig_id,
-            sensors=list(rig.sensors),
-            observations=[
-                HandEyeObservationConfig(
-                    view_id=o.view_id, base_se3_gripper=np.array(o.base_se3_gripper, float), images=dict(o.images)
-                )
-                for o in rig.observations
-            ],
-            options=optim_options(rig.options),
-            min_angle_deg=rig.min_angle_deg,
+            rig_id=rig.rig_id, sensors=list(rig.sensors), observations=_observations(rig),
+            options=optim_options(rig.options), min_angle_deg=rig.min_angle_deg,
+        )
+        for rig in cfg.rigs
+    ])
+
+
+def bundle_pipeline_config(cfg):
+    """The reference's ``BundlePipelineConfig`` -> the port's."""
+    from .pipeline.facades.handeye import BundlePipelineConfig, BundleRigConfig
+
+    return BundlePipelineConfig(rigs=[
+        BundleRigConfig(
+            rig_id=rig.rig_id, sensors=list(rig.sensors), observations=_observations(rig),
+            options=bundle_options(rig.options), min_angle_deg=rig.min_angle_deg,
+            initial_target=None if rig.initial_target is None else np.array(rig.initial_target, float),
         )
         for rig in cfg.rigs
     ])

@@ -1,4 +1,5 @@
-from . import blocks, core, extrinsics, handeye, homography, intrinsics, lm, lm_schur, manifold
+from . import blocks, bundle, core, extrinsics, handeye, homography, intrinsics, lm, lm_schur, manifold
+from .bundle import BundleOptions, BundleResult, optimize_bundle, optimize_bundle_device
 from .core import OptimOptions, OptimResult, OptimizerType, TerminationType
 from .extrinsics import (
     ExtrinsicOptimizationResult,
@@ -25,7 +26,8 @@ from .lm_schur import SchurOutput, lm_core_schur, tangent_covariance
 from .manifold import ProductManifold, euclid, quat
 
 __all__ = [
-    "blocks", "core", "extrinsics", "handeye", "homography", "intrinsics", "lm", "lm_schur", "manifold",
+    "blocks", "bundle", "core", "extrinsics", "handeye", "homography", "intrinsics", "lm", "lm_schur", "manifold",
+    "BundleOptions", "BundleResult", "optimize_bundle", "optimize_bundle_device",
     "OptimOptions", "OptimResult", "OptimizerType", "TerminationType",
     "ExtrinsicOptions", "ExtrinsicOptimizationResult", "optimize_extrinsics",
     "optimize_extrinsics_device",

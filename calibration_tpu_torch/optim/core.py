@@ -2,7 +2,8 @@
 include/calib/estimation/optim/optimize.h).
 
 A copy of ``calibration_tpu/optim/core.py``, which is JAX-free but cannot be
-imported without importing JAX (``calibration_tpu/__init__.py`` imports it).
+imported without importing JAX (``calibration_tpu/__init__.py`` imports it),
+plus ``check_ported``.
 
 ``OptimOptions`` keeps the reference's field names and defaults so JSON
 configs round-trip; the ``optimizer`` enum is accepted for compatibility but
@@ -63,6 +64,22 @@ class OptimResult:
     iterations: int = 0
     termination: TerminationType = TerminationType.NO_CONVERGENCE
     initial_cost: float = 0.0
+
+
+def check_ported(model=None, precision: str = "f64", mesh=None) -> None:
+    """The port takes the reference's parameters and honours the pinhole
+    model (a spec or a name), ``precision="f64"`` and ``mesh=None``; any
+    other value raises ``NotImplementedError`` (not ported yet)."""
+    if model is not None:
+        from ..models.registry import PINHOLE, get_model
+
+        name = getattr(model, "name", model)
+        if get_model(name).name != PINHOLE.name:
+            raise NotImplementedError(f"Camera model '{name}' is not ported yet")
+    if precision != "f64":
+        raise NotImplementedError(f"precision '{precision}' is not ported yet (f64 only)")
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet")
 
 
 def brief_report(result: "OptimResult") -> str:

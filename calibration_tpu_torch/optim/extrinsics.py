@@ -28,7 +28,7 @@ from ..models import pinhole
 from ..models.registry import PINHOLE
 from ..ops import se3
 from . import blocks, lm, lm_schur
-from .core import OptimOptions, OptimResult, TerminationType, brief_report
+from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
 from .manifold import ProductManifold, euclid, quat
 
 
@@ -196,16 +196,25 @@ def _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower, manifold):
 
 
 def optimize_extrinsics_device(
-    obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=None, opts=None, solver="schur"
+    obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=None, model=PINHOLE, opts=None,
+    solver="schur", analytic_jac=False, jac_mode="grouped",
 ):
-    """Refine B rigs on the tensors' device. obj_xy/img_uv: (B, V, C, N, 2);
-    init_intrs: (B, C, pc); init_c_se3_r: (B, C, 4, 4); init_r_se3_t:
-    (B, V, 4, 4); mask: (B, V, C, N).
+    """Refine B rigs on the tensors' device: the reference's parameters, in
+    its order, with a leading B axis on every tensor (the reference's takes
+    one rig). obj_xy/img_uv: (B, V, C, N, 2); init_intrs: (B, C, pc);
+    init_c_se3_r: (B, C, 4, 4); init_r_se3_t: (B, V, 4, 4); mask:
+    (B, V, C, N). ``model`` is the pinhole model (``check_ported``).
+    ``analytic_jac`` and ``jac_mode`` ("grouped" or "full") choose how the
+    reference computes the Schur Jacobian; the port's analytic one equals
+    each of them to 1e-10, so any ``analytic_jac`` is accepted.
 
     Returns (LMOutput, intr (B, C, pc), c_se3_r (B, C, 4, 4), r_se3_t
     (B, V, 4, 4), cov (B, n, n), cov_ok (B,)) with n = C*pc + 7C + 7V.
     """
+    check_ported(model)
     _check_solver(solver)
+    if jac_mode not in ("grouped", "full"):
+        raise NotImplementedError(f"jac_mode '{jac_mode}' is not ported yet (grouped|full)")
     opts = opts or ExtrinsicOptions()
     b, v, c = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
     pc = PINHOLE.param_count
@@ -271,7 +280,8 @@ class ExtrinsicOptimizationResult:
 
 
 def optimize_extrinsics(
-    obj_xy, img_uv, init_cameras, init_c_se3_r, init_r_se3_t, mask=None, opts=None, solver="schur"
+    obj_xy, img_uv, init_cameras, init_c_se3_r, init_r_se3_t, mask=None, model=PINHOLE, opts=None,
+    solver="schur", analytic_jac=False,
 ) -> ExtrinsicOptimizationResult:
     """Host-facing wrapper for ONE rig, a B = 1 call of
     ``optimize_extrinsics_device``. obj_xy/img_uv: (V, C, N, 2);
@@ -282,7 +292,8 @@ def optimize_extrinsics(
         raise ValueError("Incompatible pose vector sizes for joint optimization")
     out, intr, c_se3_r, r_se3_t, cov, cov_ok = optimize_extrinsics_device(
         obj_xy[None], img_uv[None], init_cameras[None], init_c_se3_r[None], init_r_se3_t[None],
-        mask=None if mask is None else mask[None], opts=opts, solver=solver,
+        mask=None if mask is None else mask[None], model=model, opts=opts, solver=solver,
+        analytic_jac=analytic_jac,
     )
     core = OptimResult(
         success=bool(out.success[0]),

@@ -23,7 +23,7 @@ from ..models.camera_matrix import CalibrationBounds
 from ..models.registry import PINHOLE
 from ..ops import se3
 from . import blocks, lm, lm_schur
-from .core import OptimOptions, OptimResult, TerminationType, brief_report
+from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
 from .manifold import ProductManifold, euclid, quat
 
 
@@ -145,10 +145,12 @@ def _prepare_mask(obj_xy, mask, view_valid):
     return mask
 
 
-def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, opts=None, view_valid=None):
+def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, model=PINHOLE, opts=None, view_valid=None):
     """Ambient covariance at a GIVEN solution by the Schur block inverse, so
-    a phased solve can defer covariance to one final pass.
+    a phased solve can defer covariance to one final pass. Every tensor has
+    a leading B axis (the reference's takes one camera).
     Returns (cov (B, pc+7V, pc+7V), cov_ok (B,))."""
+    check_ported(model)
     opts = opts or IntrinsicsOptimOptions()
     b, v = obj_xy.shape[0], obj_xy.shape[1]
     pc = PINHOLE.param_count
@@ -167,11 +169,17 @@ def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, opts=No
 
 
 def optimize_intrinsics_device(
-    obj_xy, img_uv, init_intr, init_poses, mask=None, opts=None, view_valid=None, solver="schur"
+    obj_xy, img_uv, init_intr, init_poses, mask=None, model=PINHOLE, opts=None, precision="f64",
+    view_valid=None, solver="schur", analytic_jac=False,
 ):
-    """Refine B cameras. obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc);
-    init_poses: (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V)
-    (invalid views get zero residuals and frozen pose blocks).
+    """Refine B cameras: the reference's parameters, in its order, with a
+    leading B axis on every tensor (the reference's takes one camera).
+    obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc); init_poses:
+    (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V) (invalid
+    views get zero residuals and frozen pose blocks). ``model`` is the
+    pinhole model and ``precision`` "f64" (``check_ported``).
+    ``analytic_jac`` is accepted for any value: the Schur solver's analytic
+    Jacobian equals the reference's jacfwd to 1e-10.
 
     solver: "schur" (default) eliminates the per-view pose blocks
     (``lm_core_schur``, block-inverse covariance); "dense" runs the generic
@@ -181,6 +189,7 @@ def optimize_intrinsics_device(
     Returns (LMOutput, intr (B, pc), poses (B, V, 4, 4), view_errors (B, V),
     cov (B, pc+7V, pc+7V), cov_ok (B,)).
     """
+    check_ported(model, precision)
     opts = opts or IntrinsicsOptimOptions()
     b, v = obj_xy.shape[0], obj_xy.shape[1]
     pc = PINHOLE.param_count
@@ -267,7 +276,8 @@ class IntrinsicsOptimizationResult:
 
 
 def optimize_intrinsics(
-    obj_xy, img_uv, init_intr, init_c_se3_t, mask=None, opts=None, view_valid=None, solver="schur"
+    obj_xy, img_uv, init_intr, init_c_se3_t, mask=None, model=PINHOLE, opts=None, precision="f64",
+    view_valid=None, solver="schur", analytic_jac=False,
 ) -> IntrinsicsOptimizationResult:
     """Host-facing wrapper for ONE camera, a B = 1 call of
     ``optimize_intrinsics_device``. obj_xy/img_uv: (V, N, 2); init_intr:
@@ -278,8 +288,8 @@ def optimize_intrinsics(
         raise ValueError("Insufficient views for calibration (at least 4 required).")
     out, intr, poses, view_errors, cov, cov_ok = optimize_intrinsics_device(
         obj_xy[None], img_uv[None], init_intr[None], init_c_se3_t[None],
-        mask=None if mask is None else mask[None], opts=opts,
-        view_valid=None if view_valid is None else view_valid[None], solver=solver,
+        mask=None if mask is None else mask[None], model=model, opts=opts, precision=precision,
+        view_valid=None if view_valid is None else view_valid[None], solver=solver, analytic_jac=analytic_jac,
     )
     core = OptimResult(
         success=bool(out.success[0]),

@@ -1,5 +1,6 @@
 from . import batched
 from .batched import (
+    bundle_batch,
     extrinsics_batch,
     handeye_batch,
     homography_batch,
@@ -9,6 +10,6 @@ from .batched import (
 )
 
 __all__ = [
-    "batched", "extrinsics_batch", "handeye_batch", "homography_batch", "intrinsics_batch",
+    "batched", "bundle_batch", "extrinsics_batch", "handeye_batch", "homography_batch", "intrinsics_batch",
     "intrinsics_facade_batch", "reprojection_rms_batch",
 ]

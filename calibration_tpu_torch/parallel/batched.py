@@ -1,10 +1,14 @@
-"""Batched homography, planar-intrinsics, extrinsics and hand-eye entry
-points (port of those parts of ``calibration_tpu/parallel/batched.py``).
+"""Batched homography, planar-intrinsics, extrinsics, hand-eye and bundle
+entry points (port of those parts of ``calibration_tpu/parallel/batched.py``).
 
 The reference lifts single-problem cores over a problem axis with
 ``jax.vmap`` inside one jitted program. Here every core already takes a
 leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
-between phases becomes a host decision. No mesh sharding yet.
+between phases becomes a host decision. Every entry point takes the
+reference's parameters in its order; ``mesh`` (sharding), precisions other
+than "f64" and models other than pinhole raise ``NotImplementedError``
+(``check_ported``), and ``analytic_jac`` is accepted for any value (the
+analytic Jacobians equal jacfwd to 1e-10).
 """
 
 from __future__ import annotations
@@ -14,11 +18,12 @@ from typing import Optional
 
 import torch
 
-from ..models.registry import PINHOLE, get_model
+from ..models.registry import PINHOLE
 from ..ops import handeye_linear, intrinsics_linear, planarpose
 from ..ops import homography as H
 from ..ops.projection_residuals import projection_rms_f32
-from ..optim.core import OptimOptions
+from ..optim.bundle import BundleOptions, optimize_bundle_device
+from ..optim.core import OptimOptions, check_ported
 from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
 from ..optim.handeye import optimize_handeye_device
 from ..optim.homography import homography_covariance_device, optimize_homography_device
@@ -48,9 +53,19 @@ EXTRINSICS_PHASE_MID = 8
 # largest trial count, so its phase B is empty. (The reference's TPU-tuned
 # cap is 4; its CALIB_HOMOG_PHASE_CAP override is not ported.)
 HOMOG_PHASE_CAP = 5
+# The bundle batch runs every lane up to BUNDLE_PHASE_CAP iterations, then
+# only the unconverged lanes. Measured on an H100 (tools/
+# profile_torch_cells.py, config 5 at B = 128, 7 interleaved warm calls per
+# setting): medians 88.7 / 82.4 / 77.2 / 74.1 / 76.0 / 80.3 ms at caps 2-6
+# and 12, 73.3 ms in one phase. Every config-5 lane takes 4
+# linearizations and at most 4 trials, so a lower cap adds restarts; at 5
+# the continuation is empty and the call costs what one phase does. (The
+# reference's TPU-tuned cap is 12; its CALIB_BUNDLE_PHASE_CAP override is
+# not ported.)
+BUNDLE_PHASE_CAP = 5
 
 
-def phase_schedule(total: int, caps: tuple) -> tuple:
+def _phase_budget(total: int, caps: tuple) -> tuple:
     """Iteration budget of each phase: ``caps`` in turn, then the rest of
     the ``total`` budget; empty phases after the first are dropped. The
     budget is never exceeded (the reference adds a 1-iteration phase when
@@ -131,7 +146,7 @@ def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase):
         )
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
         _phased_solve(opts), (obj, uv, mask, view_valid), (init_intr, init_poses),
-        phase_schedule(opts.core.max_iterations, (TWO_PHASE_CAP_A,)),
+        _phase_budget(opts.core.max_iterations, (TWO_PHASE_CAP_A,)),
     )
     b, v = obj.shape[0], obj.shape[1]
     if opts.core.compute_covariance:
@@ -155,6 +170,10 @@ def intrinsics_batch(
     img_uv,
     mask=None,
     opts: Optional[IntrinsicsOptimOptions] = None,
+    model_name: str = "pinhole_brown_conrady",
+    mesh=None,
+    precision: str = "f64",
+    analytic_jac: bool | None = None,
     two_phase: bool | None = None,
 ):
     """Zhang seed + LM refine for a batch of B cameras (the path
@@ -164,6 +183,7 @@ def intrinsics_batch(
     -> on for B >= TWO_PHASE_MIN_BATCH. Returns (seed, (LMOutput, intr,
     poses, view_errors, cov, cov_ok)).
     """
+    check_ported(model_name, precision, mesh)
     opts = opts or IntrinsicsOptimOptions()
     if mask is None:
         mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
@@ -189,6 +209,10 @@ def intrinsics_facade_batch(
     opts: Optional[IntrinsicsOptimOptions] = None,
     bounds=None,
     zero_skew: bool = True,
+    model_name: str = "pinhole_brown_conrady",
+    precision: str = "f64",
+    mesh=None,
+    analytic_jac: bool | None = None,
     two_phase: bool | None = None,
 ):
     """Facade-parity fleet solve: the per-camera pipeline of
@@ -204,6 +228,7 @@ def intrinsics_facade_batch(
     Returns (seed, pose_ok (B, V), (LMOutput, intr, poses, view_errors,
     cov, cov_ok), rms_check (B, V) float32).
     """
+    check_ported(model_name, precision, mesh)
     opts = opts or IntrinsicsOptimOptions()
     dtype, device = obj_xy.dtype, obj_xy.device
     b, v = obj_xy.shape[0], obj_xy.shape[1]
@@ -266,7 +291,9 @@ def extrinsics_batch(
     mask=None,
     opts: Optional[ExtrinsicOptions] = None,
     model_name: str = "pinhole_brown_conrady",
+    mesh=None,
     solver: str = "schur",
+    analytic_jac: bool | None = None,
     two_phase: bool | None = None,
 ):
     """Joint multi-camera extrinsics refinement for a fleet of B rigs (the
@@ -276,7 +303,7 @@ def extrinsics_batch(
     (B, C, 4, 4); init_r_se3_t: (B, V, 4, 4); mask: (B, V, C, N). Returns
     the ``optimize_extrinsics_device`` tuple.
 
-    two_phase: run the ``phase_schedule`` of EXTRINSICS_PHASE_CAP and
+    two_phase: run the ``_phase_budget`` of EXTRINSICS_PHASE_CAP and
     EXTRINSICS_PHASE_MID, each phase restarting the unconverged lanes (see
     ``_phased_lm``); None -> on for B >= TWO_PHASE_MIN_BATCH. Covariance
     forces one phase, as in the reference:
@@ -284,8 +311,8 @@ def extrinsics_batch(
     different LM path, and the reference computes covariance only on the
     single-phase one. Only the pinhole model is ported.
     """
+    check_ported(model_name, mesh=mesh)
     opts = opts or ExtrinsicOptions()
-    get_model(model_name)
     dtype = obj_xy.dtype
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
     b, v, c = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
@@ -298,7 +325,7 @@ def extrinsics_batch(
     lm_m, (intr_m, c_m, r_m) = _phased_lm(
         _extrinsics_phased_solve(opts, solver), (obj_xy, img_uv, mask),
         (init_intrs, init_c_se3_r, init_r_se3_t),
-        phase_schedule(opts.core.max_iterations, (EXTRINSICS_PHASE_CAP, EXTRINSICS_PHASE_MID)),
+        _phase_budget(opts.core.max_iterations, (EXTRINSICS_PHASE_CAP, EXTRINSICS_PHASE_MID)),
     )
     n_amb = c * PINHOLE.param_count + 7 * c + 7 * v
     cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
@@ -326,7 +353,7 @@ def _homography_phased_solve(options: OptimOptions):
 
 
 def homography_batch(
-    obj_xy, img_uv, mask=None, options: OptimOptions = OptimOptions(), two_phase: bool | None = None,
+    obj_xy, img_uv, mask=None, options: OptimOptions = OptimOptions(), mesh=None, two_phase: bool | None = None,
     seed_precision: str = "f64",
 ):
     """DLT seed + LM refine for a batch of homography problems.
@@ -343,6 +370,7 @@ def homography_batch(
     reference's default is f32; its seed is equivalence-tested only on
     well-conditioned data).
     """
+    check_ported(mesh=mesh)
     dtype = obj_xy.dtype
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
     init_h = _homog_seed(obj_xy, img_uv, mask, seed_precision)
@@ -353,7 +381,7 @@ def homography_batch(
         return optimize_homography_device(init_h, obj_xy, img_uv, mask, options=options)
     lm_m, (h_m,) = _phased_lm(
         _homography_phased_solve(options), (obj_xy, img_uv, mask), (init_h,),
-        phase_schedule(options.max_iterations, (HOMOG_PHASE_CAP,)),
+        _phase_budget(options.max_iterations, (HOMOG_PHASE_CAP,)),
     )
     if options.compute_covariance:
         cov, cov_ok = homography_covariance_device(h_m, obj_xy, img_uv, mask, options)
@@ -365,12 +393,63 @@ def homography_batch(
 
 def handeye_batch(
     base_se3_gripper, cam_se3_target, options: OptimOptions = OptimOptions(), min_angle_deg: float = 1.0,
-    rot_residual: str = "quat",
+    mesh=None, rot_residual: str = "quat",
 ):
     """Tsai-Lenz DLT seed + AX = XB LM for a batch of rigs: one pair build
     feeds both. base_se3_gripper/cam_se3_target: (B, P, 4, 4).
     rot_residual: "quat" (default) or "log" (see optimize_handeye_device).
     Returns the optimize_handeye_device tuple."""
+    check_ported(mesh=mesh)
     pairs = handeye_linear.build_all_pairs(base_se3_gripper, cam_se3_target, min_angle_deg)
     init, _ = handeye_linear.estimate_handeye_dlt_pairs(pairs)
     return optimize_handeye_device(pairs, init, options, rot_residual=rot_residual)
+
+
+def _bundle_phased_solve(opts: BundleOptions, analytic_jac: bool):
+    def solve(iters, obj, uv, bg, cam_idx, mask, intrs, g0, b0):
+        core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
+        return optimize_bundle_device(
+            obj, uv, bg, cam_idx, intrs, g0, b0, mask=mask, opts=dataclasses.replace(opts, core=core),
+            analytic_jac=analytic_jac,
+        )
+
+    return solve
+
+
+def bundle_batch(
+    obj_xy, img_uv, b_se3_g, cam_idx, init_intrs, init_g_se3_c, init_b_se3_t,
+    mask=None, opts: Optional[BundleOptions] = None, mesh=None,
+    analytic_jac: bool | None = None, two_phase: bool | None = None,
+):
+    """Bundle adjustment for a batch of B rigs (a leading B axis on every
+    argument; see ``optimize_bundle_device``). Returns its tuple.
+
+    analytic_jac: None or True -> the analytic pinhole Jacobian, False ->
+    forward-mode autodiff. two_phase: every lane up to BUNDLE_PHASE_CAP
+    iterations, then the unconverged lanes for the rest of the budget (see
+    ``_phased_lm``; the budget is never exceeded); None -> on for B >=
+    TWO_PHASE_MIN_BATCH. Covariance forces one phase, as in the reference.
+    """
+    check_ported(mesh=mesh)
+    opts = opts or BundleOptions()
+    analytic = True if analytic_jac is None else bool(analytic_jac)
+    dtype = obj_xy.dtype
+    mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
+    b = obj_xy.shape[0]
+    if two_phase is None:
+        two_phase = b >= TWO_PHASE_MIN_BATCH
+    if not two_phase or opts.core.compute_covariance:
+        return optimize_bundle_device(
+            obj_xy, img_uv, b_se3_g, cam_idx, init_intrs, init_g_se3_c, init_b_se3_t, mask=mask, opts=opts,
+            analytic_jac=analytic,
+        )
+    lm_m, (intr_m, g_m, b_m) = _phased_lm(
+        _bundle_phased_solve(opts, analytic), (obj_xy, img_uv, b_se3_g, cam_idx, mask),
+        (init_intrs, init_g_se3_c, init_b_se3_t),
+        _phase_budget(opts.core.max_iterations, (BUNDLE_PHASE_CAP,)),
+    )
+    c = init_intrs.shape[1]
+    n_amb = c * PINHOLE.param_count + 7 * c + 7
+    cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
+    cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
+    return lm_m, intr_m, g_m, b_m, cov, cov_ok

@@ -15,4 +15,4 @@ from .pipeline import (
     PipelineStageResult,
     StageDecorator,
 )
-from .stages import HandEyeCalibrationStage, IntrinsicStage, StereoCalibrationStage
+from .stages import BundleAdjustmentStage, HandEyeCalibrationStage, IntrinsicStage, StereoCalibrationStage

@@ -11,7 +11,13 @@ from .extrinsics import (
     StereoPairConfig,
     StereoViewSelection,
 )
-from .handeye import HandEyeObservationConfig, HandEyePipelineConfig, HandEyeRigConfig
+from .handeye import (
+    BundlePipelineConfig,
+    BundleRigConfig,
+    HandEyeObservationConfig,
+    HandEyePipelineConfig,
+    HandEyeRigConfig,
+)
 from .intrinsics import (
     CameraConfig,
     IntrinsicCalibrationConfig,

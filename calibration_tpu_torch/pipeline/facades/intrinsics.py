@@ -416,7 +416,7 @@ class PlanarIntrinsicCalibrationFacade:
             stack = lambda field: self._tensor(np.stack([getattr(prepared[i], field) for i in idxs]))
             seed_d, pose_ok_d, refine_d, rms_chk_d = intrinsics_facade_batch(
                 stack("obj"), stack("uv"), mask=stack("mask"), view_valid=stack("view_valid"),
-                opts=opts, bounds=bounds, zero_skew=zero_skew,
+                opts=opts, bounds=bounds, zero_skew=zero_skew, model_name=model_name,
             )
             lm_d, intr_d, poses_d, view_err_d, cov_d, cov_ok_d = refine_d
             # ONE host transfer for the whole group; the ambient covariance,

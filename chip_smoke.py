@@ -58,15 +58,27 @@
    through ``handeye_batch`` on the card: every rig converged, X within
    1e-7 m / 1e-5 deg of the truth, card vs CPU on 16 rigs (X within 1e-9,
    the same counters), warm rigs/s.
-11. Drives the bundle_pipeline app (``--device cuda``, no bundle section:
-   intrinsics, then hand-eye) on 64 robot cells of the JAX package's
-   pipeline fleet (12 observations of an 8x11 grid, 0.05 px noise, seed
-   29; ``write_handeye_fleet``): first and warm call timed by layer
-   (ingest, intrinsics, hand_eye, writing); every rig ``ok``, g_se3_c
-   within HE_POSE_TOL of the truth, K1 launched with no QA warning,
-   card/CPU artifacts on 4 rigs within the report bounds; then the
-   homography app on the card (DLT and RANSAC input) against the CPU app.
-12. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+11. Solves the bundle benchmark set (BASELINE config 5: B = 128 rigs, 20
+   observations of an 8x11 grid at 0.03 m, 0.2 px noise, seed 19,
+   max_iterations 50, covariance off, intrinsics fixed at the truth, the
+   perturbed g0 and b0 seeds) through ``bundle_batch`` on the card: every
+   rig converged, g_se3_c within BUNDLE_TOL of the truth, the linearization
+   histogram, the first call and the median of BUNDLE_WARM_CALLS warm calls
+   in rigs/s, card vs CPU on 8 rigs (cost within 1e-7 relative, the same
+   iterations and termination).
+12. Drives the four-stage bundle_pipeline app (``--device cuda``:
+   intrinsics, hand-eye, bundle) on 64 robot cells of the JAX package's
+   pipeline fleet with its bundle section (12 observations of an 8x11
+   grid, 0.05 px noise, seed 29; ``write_handeye_fleet``): first and warm
+   call timed by layer (ingest, intrinsics, hand_eye, bundle, writing);
+   every hand-eye and bundle rig ``ok``, every bundle hand-eye init from
+   the hand-eye stage (the fused path), hand-eye g_se3_c within
+   HE_POSE_TOL and bundle g_se3_c within BUNDLE_PIPE_TOL of the truth, K1
+   launched with no QA warning; card/CPU artifacts on 4 rigs within the
+   report bounds with the bundle section, without it, and with DLT seeds
+   (the staged path); then the homography app on the card (DLT and RANSAC
+   input) against the CPU app.
+13. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
    time of the bare launcher captured in a CUDA graph (L2-warm on one input
    set, L2-cold over rotating sets), the kernel's duration as
    torch.profiler reads it, the wrapper's host time per call, the bound and
@@ -110,8 +122,8 @@ from calibration_tpu_torch.kernels import _build
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac
-from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
-from calibration_tpu_torch.parallel import batched, extrinsics_batch, handeye_batch, homography_batch
+from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_facade_batch
 from calibration_tpu_torch.pipeline import loaders, reports, stages
 from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
@@ -162,6 +174,20 @@ HE_PIPELINE_PARITY_RIGS = 4
 # 41.8 mm / 2.34 deg
 HE_POSE_TOL_M = 0.055
 HE_POSE_TOL_DEG = 3.1
+# g_se3_c vs the truth on every rig after the bundle stage of that pipeline:
+# about 1.3x the JAX reference's own worst rig (CPU, f64, the same 64 rigs;
+# tools/handeye_pose_reference.py --bundle), 1.31 mm / 0.109 deg
+BUNDLE_PIPE_TOL_M = 0.0017
+BUNDLE_PIPE_TOL_DEG = 0.14
+BUNDLE_RIGS = 128  # config 5's batch
+BUNDLE_PARITY_RIGS = 8
+BUNDLE_WARM_CALLS = 7
+BUNDLE_OPTS = BundleOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
+# g_se3_c vs the truth on every lane of config 5 (0.2 px noise, intrinsics
+# fixed at the truth): about 1.3x the JAX reference's own worst lane (CPU,
+# f64; tools/handeye_pose_reference.py --bundle), 0.253 mm / 0.0225 deg
+BUNDLE_TOL_M = 0.00033
+BUNDLE_TOL_DEG = 0.029
 
 
 class SmokeFailure(RuntimeError):
@@ -535,18 +561,45 @@ def handeye_problems(batch, num_poses=20, seed=17):
     g_gts, bgs, cts = [], [], []
     for i in range(batch):
         g = _pose([0.1 + 1e-3 * i, -0.2, 0.15], [0.02, -0.03, 0.05])
-        bt = _pose([0.05, 0.03, -0.08], [0.4, -0.1, 0.2])
-        bg, ct = [], []
-        for _ in range(num_poses):
-            ang = rng.uniform(-0.4, 0.4, 3)
-            tr = rng.uniform(-0.08, 0.08, 3) + np.array([0.0, 0.0, 0.7])
-            c = _pose(ang, tr)
-            bg.append(bt @ np.linalg.inv(c) @ np.linalg.inv(g))
-            ct.append(c)
+        bg, ct = _handeye_sequence(num_poses, rng, g, _pose([0.05, 0.03, -0.08], [0.4, -0.1, 0.2]))
         g_gts.append(g)
-        bgs.append(np.stack(bg))
-        cts.append(np.stack(ct))
+        bgs.append(bg)
+        cts.append(ct)
     return np.stack(g_gts), np.stack(bgs), np.stack(cts)
+
+
+def _handeye_sequence(num_poses, rng, g_se3_c, b_se3_t):
+    """``num_poses`` camera views of the target, then the gripper poses
+    that give them (base_se3_gripper (P, 4, 4), cam_se3_target (P, 4, 4))."""
+    bg, ct = [], []
+    for _ in range(num_poses):
+        c = _pose(rng.uniform(-0.4, 0.4, 3), rng.uniform(-0.08, 0.08, 3) + np.array([0.0, 0.0, 0.7]))
+        bg.append(b_se3_t @ np.linalg.inv(c) @ np.linalg.inv(g_se3_c))
+        ct.append(c)
+    return np.stack(bg), np.stack(ct)
+
+
+def bundle_problems(batch, num_obs=20, rows=8, cols=11, noise=0.2, seed=19):
+    """The JAX package's bundle benchmark set (its
+    benchmarks/problems.py::bundle_problems, BASELINE config 5): B rigs of
+    one camera, ``num_obs`` observations of a planar grid with pixel noise,
+    and the truth perturbed by fixed small poses as the g0 and b0 seeds.
+    Returns a dict of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    obj = _grid(rows, cols, 0.03)
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    out = {k: [] for k in ("g_gt", "b_gt", "bg", "uv", "g0", "b0")}
+    dp = _pose([0.008, -0.006, 0.01], [0.003, -0.002, 0.004])
+    dq = _pose([-0.005, 0.007, -0.004], [0.002, 0.003, -0.002])
+    for i in range(batch):
+        g = _pose([0.1 + 1e-3 * i, -0.2, 0.15], [0.02, -0.03, 0.05])
+        bt = _pose([0.05, 0.03, -0.08], [0.4, -0.1, 0.2])
+        bg, ct = _handeye_sequence(num_obs, rng, g, bt)
+        for key, val in (("g_gt", g), ("b_gt", bt), ("bg", bg), ("uv", _render(intr, ct, obj, noise, rng)),
+                         ("g0", g @ dp), ("b0", bt @ dq)):
+            out[key].append(val)
+    return dict(obj=np.tile(obj[None, None], (batch, num_obs, 1, 1)), intr=intr,
+                **{k: np.stack(v) for k, v in out.items()})
 
 
 STEREO_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
@@ -1017,15 +1070,64 @@ def handeye_phase(dev, card):
     return warm_s
 
 
+def bundle_args(p, device):
+    """bundle_batch's arguments for a bundle_problems set, as
+    bench_all.py's config 5 passes them: one camera (cam_idx zeros), its
+    intrinsics fixed at the truth, the perturbed g0 and b0 seeds."""
+    b, o = p["bg"].shape[:2]
+    arrays = (p["obj"], p["uv"], p["bg"], np.zeros((b, o), np.int64), np.tile(p["intr"][None, None], (b, 1, 1)),
+              p["g0"][:, None], p["b0"])
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def check_bundle(out, p):
+    lm, _, g_se3_c, _, _, _ = out
+    b = p["g_gt"].shape[0]
+    check(bool(lm.success.all()), f"all {b} bundle rigs converged")
+    tra, rot = pose_errors(g_se3_c[:, 0].cpu().numpy(), p["g_gt"])
+    print(f"[smoke] bundle B={b}: g_se3_c vs truth max {tra!r} m, {rot!r} deg; linearizations histogram "
+          f"{np.bincount(lm.linearizations.cpu().numpy()).tolist()}; trials max {int(lm.iterations.max())}")
+    check(tra <= BUNDLE_TOL_M and rot <= BUNDLE_TOL_DEG,
+          f"g_se3_c within {BUNDLE_TOL_M} m and {BUNDLE_TOL_DEG} deg of the truth on every rig")
+
+
+def bundle_phase(dev, card):
+    """Config 5 through bundle_batch on the card: checks, the first call
+    and the median of BUNDLE_WARM_CALLS warm calls, card/CPU parity on the
+    first BUNDLE_PARITY_RIGS rigs on the same schedule. Returns the warm
+    median in s."""
+    p = bundle_problems(BUNDLE_RIGS)
+    run = functools.partial(bundle_batch, *bundle_args(p, dev), opts=BUNDLE_OPTS)
+    out, first_s = timed(run, dev)
+    check_bundle(out, p)
+    warm = [timed(run, dev)[1] for _ in range(BUNDLE_WARM_CALLS)]
+    med = float(np.median(warm))
+    print(f"[smoke] bundle B={BUNDLE_RIGS}: first call {first_s!r} s, warm median {med!r} s = "
+          f"{BUNDLE_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
+    k = BUNDLE_PARITY_RIGS
+    head = dict(p, **{key: p[key][:k] for key in ("obj", "uv", "bg", "g0", "b0")})
+    cpu = bundle_batch(*bundle_args(head, "cpu"), opts=BUNDLE_OPTS,
+                       two_phase=BUNDLE_RIGS >= batched.TWO_PHASE_MIN_BATCH)
+    rel = float(((out[0].cost[:k].cpu() - cpu[0].cost).abs() / cpu[0].cost.abs()).max())
+    same = all(torch.equal(getattr(out[0], f)[:k].cpu(), getattr(cpu[0], f)) for f in ("iterations", "termination"))
+    print(f"[smoke] bundle card vs CPU, first {k} rigs: final cost max rel diff {rel!r}, same iterations and "
+          f"termination {same}")
+    check(rel <= COST_PARITY_RTOL and same,
+          f"bundle card/CPU parity: cost within {COST_PARITY_RTOL} relative, the same iterations and termination")
+    return med
+
+
 def write_handeye_fleet(directory, rigs, num_obs=12, rows=8, cols=11, noise=0.05, seed=29):
-    """The JAX package's hand-eye pipeline fleet (its
-    benchmarks/pipeline_fleet.py::make_fleet) without its bundle section:
-    ``rigs`` robot cells, each one camera with its own hand-eye transform
-    and base -> target pose and ``num_obs`` observations, written as
-    detections files, a planar-intrinsics config and a pipeline input. One
-    generator runs over the rigs in order, so a rig's data does not depend
-    on ``rigs``. Returns dict(obj, uv, bg, ct_gt (R, O, ...), intr, g_gt,
-    bt_gt (R, 4, 4), input_path)."""
+    """The JAX package's robot-cell pipeline fleet (its
+    benchmarks/pipeline_fleet.py::make_fleet): ``rigs`` robot cells, each
+    one camera with its own hand-eye transform and base -> target pose and
+    ``num_obs`` observations, written as detections files, a
+    planar-intrinsics config and a pipeline input with hand-eye and bundle
+    sections. The bundle rigs have no observations of their own (the stage
+    takes the hand-eye rig's) and fixed intrinsics; ``pipeline_variant``
+    derives the other inputs. One generator runs over the rigs in order, so
+    a rig's data does not depend on ``rigs``. Returns dict(obj, uv, bg,
+    ct_gt (R, O, ...), intr, g_gt, bt_gt (R, 4, 4), input_path)."""
     out = Path(directory)
     rng = np.random.default_rng(seed)
     obj = _grid(rows, cols, 0.03)
@@ -1060,10 +1162,14 @@ def write_handeye_fleet(directory, rigs, num_obs=12, rows=8, cols=11, noise=0.05
                     "min_corners_per_view": 20, "refine": True},
         "cameras": cameras,
     }))
-    input_path = out / "handeye_input.json"
+    bundle_rigs = [
+        {"rig_id": f"rig{r}", "sensors": [f"cam{r}"], "options": {"optimize_intrinsics": False}, "min_angle_deg": 1.0}
+        for r in range(rigs)
+    ]
+    input_path = out / "bundle_input.json"
     input_path.write_text(json.dumps({
         "planar_intrinsics_config": "planar_intrinsics_config.json", "planar_detections": sensors,
-        "hand_eye": {"rigs": he_rigs},
+        "hand_eye": {"rigs": he_rigs}, "bundle": {"rigs": bundle_rigs},
     }))
     return dict(obj=np.tile(obj[None, None], (rigs, num_obs, 1, 1)), **arrays, intr=intr, g_gt=g_b, bt_gt=bt_b,
                 input_path=str(input_path))
@@ -1073,14 +1179,33 @@ HANDEYE_LAYERS = (
     (loaders.JsonPlanarDatasetLoader, "load", "ingest"),
     (stages.IntrinsicStage, "run", "intrinsics"),
     (stages.HandEyeCalibrationStage, "run", "hand_eye"),
+    (stages.BundleAdjustmentStage, "run", "bundle"),
     (native, "dumps_fast", "writing"),
 )
 
 
+def pipeline_variant(input_path, variant) -> str:
+    """A copy of a ``write_handeye_fleet`` input beside it:
+    "handeye" drops the bundle section (intrinsics, then hand-eye);
+    "staged" moves the hand-eye rigs' observations into the bundle rigs and
+    drops the hand-eye section, so the bundle stage seeds every rig by DLT
+    and takes its staged path. Returns the copy's path."""
+    data = json.loads(Path(input_path).read_text())
+    if variant == "handeye":
+        data.pop("bundle")
+    elif variant == "staged":
+        for rig, he_rig in zip(data["bundle"]["rigs"], data.pop("hand_eye")["rigs"]):
+            rig["observations"] = he_rig["observations"]
+    else:
+        raise ValueError(variant)
+    path = Path(input_path).with_name(f"{variant}_input.json")
+    path.write_text(json.dumps(data))
+    return str(path)
+
+
 def run_handeye_pipeline(input_path, out, device):
-    """One bundle_pipeline call (no bundle section); returns (artifacts
-    JSON, wall s, seconds by layer). Its own output goes to a buffer, shown
-    on failure."""
+    """One bundle_pipeline call; returns (artifacts JSON, wall s, seconds
+    by layer). Its own output goes to a buffer, shown on failure."""
     log = io.StringIO()
     with layer_timers(device, HANDEYE_LAYERS) as seconds, contextlib.redirect_stdout(log), \
             contextlib.redirect_stderr(log):
@@ -1095,19 +1220,35 @@ def run_handeye_pipeline(input_path, out, device):
     return json.loads(Path(out).read_text()), wall, seconds
 
 
-def check_handeye_artifacts(art, fleet):
+def check_handeye_artifacts(art, fleet, source="handeye"):
+    """The pipeline's checks: K1's QA recheck on every camera; every
+    hand-eye rig ok within HE_POSE_TOL of the truth when the hand-eye stage
+    ran; every bundle rig ok within BUNDLE_PIPE_TOL, each hand-eye init
+    from ``source``, when the bundle stage ran."""
     rigs = fleet["g_gt"].shape[0]
     summary = {s["name"]: s for s in art["pipeline_summary"]["stages"]}
     cams = summary["intrinsics"]["cameras"]
     check(len(cams) == rigs and all(c["warnings"]["rms_check"] == 0 for c in cams),
           f"intrinsics stage: kernel QA recheck within {QA_ATOL_PX} px of view_errors on all {rigs} cameras")
-    statuses = [art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["status"] for r in range(rigs)]
-    check(statuses == ["ok"] * rigs and summary["hand_eye"]["status"] == "ok", f"all {rigs} hand-eye rigs ok")
-    g = np.array([art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["g_se3_c"] for r in range(rigs)])
-    tra, rot = pose_errors(g, fleet["g_gt"])
-    print(f"[smoke] hand-eye pipeline: g_se3_c vs truth max {tra!r} m, {rot!r} deg")
-    check(tra <= HE_POSE_TOL_M and rot <= HE_POSE_TOL_DEG,
-          f"g_se3_c within {HE_POSE_TOL_M} m and {HE_POSE_TOL_DEG} deg of the truth for every rig")
+    if "hand_eye" in summary:
+        statuses = [art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["status"] for r in range(rigs)]
+        check(statuses == ["ok"] * rigs and summary["hand_eye"]["status"] == "ok", f"all {rigs} hand-eye rigs ok")
+        g = np.array([art["hand_eye"][f"rig{r}"]["sensors"][f"cam{r}"]["g_se3_c"] for r in range(rigs)])
+        tra, rot = pose_errors(g, fleet["g_gt"])
+        print(f"[smoke] hand-eye pipeline: hand-eye g_se3_c vs truth max {tra!r} m, {rot!r} deg")
+        check(tra <= HE_POSE_TOL_M and rot <= HE_POSE_TOL_DEG,
+              f"hand-eye g_se3_c within {HE_POSE_TOL_M} m and {HE_POSE_TOL_DEG} deg of the truth for every rig")
+    if "bundle" in summary:
+        rig_sums = summary["bundle"]["rigs"]
+        check([r["status"] for r in rig_sums] == ["ok"] * rigs and summary["bundle"]["status"] == "ok",
+              f"all {rigs} bundle rigs ok")
+        sources = {e["source"] for r in rig_sums for e in r["handeye_initialization"]}
+        check(sources == {source}, f"every bundle hand-eye init from '{source}' ({sorted(sources)})")
+        g = np.array([art["bundle"][f"rig{r}"]["result"]["g_se3_c"][0] for r in range(rigs)])
+        tra, rot = pose_errors(g, fleet["g_gt"])
+        print(f"[smoke] bundle pipeline ({source} seeds): bundle g_se3_c vs truth max {tra!r} m, {rot!r} deg")
+        check(tra <= BUNDLE_PIPE_TOL_M and rot <= BUNDLE_PIPE_TOL_DEG,
+              f"bundle g_se3_c within {BUNDLE_PIPE_TOL_M} m and {BUNDLE_PIPE_TOL_DEG} deg of the truth for every rig")
 
 
 def homography_app_check(directory, card):
@@ -1133,9 +1274,11 @@ def homography_app_check(directory, card):
 
 
 def handeye_pipeline_phase(card: str) -> int:
-    """The bundle_pipeline app (hand-eye stage, no bundle section) over
-    HE_PIPELINE_RIGS robot cells on the card, then card/CPU parity on
-    HE_PIPELINE_PARITY_RIGS rigs, then the homography app. Returns the K1
+    """The four-stage bundle_pipeline app (intrinsics, hand-eye, bundle)
+    over HE_PIPELINE_RIGS robot cells on the card, then card/CPU parity on
+    HE_PIPELINE_PARITY_RIGS rigs with the bundle section, without it, and
+    with the hand-eye section's observations moved into the bundle rigs
+    (DLT seeds, the staged path), then the homography app. Returns the K1
     launches of the app's first call, the path's counted run."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from torch_helpers import assert_reports_match
@@ -1161,10 +1304,13 @@ def handeye_pipeline_phase(card: str) -> int:
         k = HE_PIPELINE_PARITY_RIGS
         (Path(tmp) / "small").mkdir()
         small = write_handeye_fleet(Path(tmp) / "small", k)
-        cpu, _, _ = run_handeye_pipeline(small["input_path"], Path(tmp) / "he_cpu.json", "cpu")
-        card_k, _, _ = run_handeye_pipeline(small["input_path"], Path(tmp) / "he_card4.json", "cuda")
-        assert_reports_match(without_durations(cpu), without_durations(card_k))
-        print(f"[smoke] ok: hand-eye pipeline card vs CPU artifacts on {k} rigs within the report bounds")
+        for variant, source in (("bundle", "handeye"), ("handeye", None), ("staged", "dlt")):
+            path = small["input_path"] if variant == "bundle" else pipeline_variant(small["input_path"], variant)
+            cpu, _, _ = run_handeye_pipeline(path, Path(tmp) / f"{variant}_cpu.json", "cpu")
+            card_k, _, _ = run_handeye_pipeline(path, Path(tmp) / f"{variant}_card.json", "cuda")
+            check_handeye_artifacts(card_k, small, source)
+            assert_reports_match(without_durations(cpu), without_durations(card_k))
+            print(f"[smoke] ok: pipeline ({variant}) card vs CPU artifacts on {k} rigs within the report bounds")
         homography_app_check(tmp, card)
     return launches
 
@@ -1216,6 +1362,7 @@ def main() -> int:
     # the QA path's f32 matmuls run in full f32, never TF32; the solve is f64
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[smoke] torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
@@ -1294,7 +1441,9 @@ def main() -> int:
     rms_launches += pipeline_phase(card)
     homography_phase(dev, card)
     handeye_phase(dev, card)
+    bundle_phase(dev, card)
     rms_launches += handeye_pipeline_phase(card)
+    print(f"[smoke] end-to-end phases done {time.perf_counter() - start!r} s after the start")
 
     # last, so that the profiler's device tracing (CUPTI) is off during the
     # end-to-end phases above
@@ -1322,6 +1471,7 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes this function
             "shape": f"{QA_SHAPES[0][0] * QA_SHAPES[0][1]}x{QA_SHAPES[0][2]}",
         })
+    print(f"[smoke] whole run {time.perf_counter() - start!r} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

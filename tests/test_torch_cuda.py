@@ -4,9 +4,9 @@ on the CPU, the batched RANSAC prefilter on the card, the
 planar_intrinsics app on the card against the app on the CPU, the
 extrinsics batch on the card against the CPU, the
 intrinsic_extrinsic_pipeline app on the card against the app on the CPU,
-and the dense LM's users (homography_batch, handeye_batch, the dense
-intrinsics solver, the homography and bundle_pipeline apps) on the card
-against the CPU.
+and the dense LM's users (homography_batch, handeye_batch, bundle_batch,
+the dense intrinsics solver, the homography and the four-stage
+bundle_pipeline apps) on the card against the CPU.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -25,9 +25,10 @@ from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intr
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac, se3
-from calibration_tpu_torch.optim import ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
-from calibration_tpu_torch.parallel import extrinsics_batch, handeye_batch, homography_batch, intrinsics_facade_batch
+from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
+from calibration_tpu_torch.parallel import intrinsics_facade_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -307,9 +308,9 @@ def test_homography_app_on_card_matches_cpu(cuda_device, tmp_path):
 
 
 def test_bundle_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
-    """The hand-eye pipeline (no bundle section) on 3 generated robot
-    cells: the card's artifacts are the CPU's within the report bounds and
-    the intrinsics stage ran the kernel."""
+    """The four-stage pipeline (intrinsics, hand-eye, bundle) on 3
+    generated robot cells: the card's artifacts are the CPU's within the
+    report bounds and the intrinsics stage ran the kernel."""
     fleet = chip_smoke.write_handeye_fleet(tmp_path, 3)
     arts = []
     for device in ("cuda", "cpu"):
@@ -319,4 +320,20 @@ def test_bundle_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
         if device == "cuda":
             assert pr.launches["rms"] > before
         arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
+    assert [s["name"] for s in arts[0]["pipeline_summary"]["stages"]] == ["intrinsics", "hand_eye", "bundle"]
     assert_reports_match(arts[1], arts[0])
+
+
+@pytest.mark.parametrize("two_phase,covariance", [(False, True), (True, False)], ids=["one_phase_cov", "phased"])
+def test_bundle_batch_on_card_matches_cpu(cuda_device, two_phase, covariance):
+    """16 lanes of the config-5 set: the same counters, cost 1e-7
+    relative, g_se3_c 1e-9, covariance 1e-6 of its largest entry."""
+    p = chip_smoke.bundle_problems(16)
+    opts = BundleOptions(core=OptimOptions(max_iterations=50, compute_covariance=covariance))
+    gpu = bundle_batch(*chip_smoke.bundle_args(p, cuda_device), opts=opts, two_phase=two_phase)
+    cpu = bundle_batch(*chip_smoke.bundle_args(p, "cpu"), opts=opts, two_phase=two_phase)
+    assert bool(gpu[0].success.all()) and bool(gpu[5].all()) == covariance
+    _lm_equal(gpu[0], cpu[0])
+    assert float((gpu[2].cpu() - cpu[2]).abs().max()) <= 1e-9
+    scale = cpu[4].abs().amax(dim=(-2, -1)).clamp(min=1e-300)
+    assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())

@@ -318,7 +318,7 @@ def test_phase_schedule_keeps_the_budget():
     caps = (tbatched.EXTRINSICS_PHASE_CAP, tbatched.EXTRINSICS_PHASE_MID)
     for total, want in ((0, (0,)), (1, (1,)), (5, (5,)), (6, (5, 1)), (13, (5, 8)), (14, (5, 8, 1)),
                         (50, (5, 8, 37))):
-        assert tbatched.phase_schedule(total, caps) == want
+        assert tbatched._phase_budget(total, caps) == want
         assert sum(want) == total
 
 

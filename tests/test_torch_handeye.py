@@ -4,7 +4,8 @@ weights, the Tsai-Lenz DLT seed, both rotation residuals and both analytic
 Jacobians (against JAX's jacfwd), ``optimize_handeye_device`` and
 ``handeye_batch``, the three fleet functions, ``HandEyeCalibrationStage``
 with every status path, the ``bundle_pipeline`` app on an input without a
-bundle section; and the app's refusals (a bundle section, a missing card).
+bundle section (the bundle stage: tests/test_torch_bundle.py); and the
+app's refusal of a missing card.
 
 Data: the JAX package's config-4 generator (benchmarks/problems.py::
 handeye_problems, restated without JAX in chip_smoke.py) with 12 poses,
@@ -397,21 +398,6 @@ def test_bundle_pipeline_app_matches_jax(tmp_path):
     assert [s["name"] for s in got["pipeline_summary"]["stages"]] == ["intrinsics", "hand_eye"]
     assert_reports_match(want, got)
     assert got["hand_eye"]["rig0"]["sensors"]["cam0"]["status"] == "ok"
-
-
-def test_bundle_pipeline_refuses_a_bundle_section(tmp_path, capsys):
-    path, d, bundle = _input_without_bundle(tmp_path)
-    path.write_text(json.dumps(dict(d, bundle=bundle)))
-    out = tmp_path / "out.json"
-    assert tapp.main(["--input", str(path), "--output", str(out), "--device", "cpu"]) == 1
-    assert capsys.readouterr().err.strip().splitlines()[-1] == (
-        "Calibration pipeline failed: bundle stage is not ported yet"
-    )
-    assert not out.exists()
-    # an empty bundle section is no bundle stage, as in the reference;
-    # positional keys are read too
-    assert tapp._bundle_rigs(dict(d, bundle={"rigs": []})) == []
-    assert tapp._bundle_rigs(dict(d, bundle={"field_0": bundle["rigs"]})) == bundle["rigs"]
 
 
 def test_bundle_pipeline_refuses_a_missing_card(tmp_path, monkeypatch, capsys):

@@ -143,9 +143,9 @@ def test_single_phase_with_fixed_distortion_matches_jax():
 
 def test_phase_schedule_keeps_the_budget():
     for total in (1, 6, 7, 40):
-        sched = tb.phase_schedule(total, (tb.TWO_PHASE_CAP_A,))
+        sched = tb._phase_budget(total, (tb.TWO_PHASE_CAP_A,))
         assert sum(sched) == total and sched[0] == min(6, total)
-    assert tb.phase_schedule(TOPTS.core.max_iterations, (tb.TWO_PHASE_CAP_A,)) == (6, 34)
+    assert tb._phase_budget(TOPTS.core.max_iterations, (tb.TWO_PHASE_CAP_A,)) == (6, 34)
 
 
 def test_convert_carries_every_option_field():

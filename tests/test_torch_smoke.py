@@ -1,8 +1,8 @@
 """CPU rehearsal of ``chip_smoke.py``'s app, stereo, pipeline, homography,
-hand-eye and hand-eye pipeline phases, which otherwise run only on the
-card: the same generators at a small size (4 sensors, 4 rigs, 64 lanes),
-the apps and the solves on the CPU, and the phases' own checks, so a wrong
-path, shape or threshold shows here before a chip run.
+hand-eye, bundle and four-stage pipeline phases, which otherwise run only
+on the card: the same generators at a small size (4 sensors, 4 rigs, 4 or
+64 lanes), the apps and the solves on the CPU, and the phases' own checks,
+so a wrong path, shape or threshold shows here before a chip run.
 Also: the script refuses to run without a card, and outside the
 repository. No JAX is imported."""
 
@@ -162,27 +162,59 @@ def test_handeye_phase_checks_pass_on_cpu(monkeypatch):
 
 
 def test_handeye_pipeline_phase_checks_pass_on_cpu(tmp_path):
-    """The hand-eye pipeline on 4 rigs: every rig ok within the pose bound,
-    no QA warning, every layer timed; the timers come off again."""
+    """The four-stage pipeline on 4 rigs: every hand-eye and bundle rig ok
+    within its pose bound, the bundle seeded by the hand-eye stage (the
+    fused path), no QA warning, every layer timed; the timers come off
+    again."""
     fleet = chip_smoke.write_handeye_fleet(tmp_path, 4)
-    run = stages.HandEyeCalibrationStage.run
+    run = stages.BundleAdjustmentStage.run
     art, wall, seconds = chip_smoke.run_handeye_pipeline(fleet["input_path"], tmp_path / "a.json", "cpu")
-    assert stages.HandEyeCalibrationStage.run is run
+    assert stages.BundleAdjustmentStage.run is run
     chip_smoke.check_handeye_artifacts(art, fleet)
-    assert set(seconds) == {"ingest", "intrinsics", "hand_eye", "writing"}
+    assert set(seconds) == {"ingest", "intrinsics", "hand_eye", "bundle", "writing"}
     assert 0 < sum(seconds.values()) <= wall
 
 
-@pytest.mark.parametrize("which", ["homography", "handeye", "handeye_fleet"])
+@pytest.mark.parametrize("variant,stage_names", [
+    ("handeye", ["intrinsics", "hand_eye"]), ("staged", ["intrinsics", "bundle"]),
+])
+def test_pipeline_variants_pass_their_checks_on_cpu(tmp_path, variant, stage_names):
+    """The smoke's parity inputs: without the bundle section, and with the
+    hand-eye observations moved into the bundle rigs (DLT seeds, the staged
+    path)."""
+    fleet = chip_smoke.write_handeye_fleet(tmp_path, 4)
+    path = chip_smoke.pipeline_variant(fleet["input_path"], variant)
+    art, _, _ = chip_smoke.run_handeye_pipeline(path, tmp_path / "a.json", "cpu")
+    assert [s["name"] for s in art["pipeline_summary"]["stages"]] == stage_names
+    chip_smoke.check_handeye_artifacts(art, fleet, "dlt")
+
+
+def test_bundle_phase_checks_pass_on_cpu(monkeypatch):
+    """Config 5 at 4 lanes: every check holds (the parity on 2 lanes
+    against themselves, on the card's schedule) and the warm median comes
+    back."""
+    monkeypatch.setattr(chip_smoke, "BUNDLE_RIGS", 4)
+    monkeypatch.setattr(chip_smoke, "BUNDLE_PARITY_RIGS", 2)
+    monkeypatch.setattr(chip_smoke, "BUNDLE_WARM_CALLS", 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    assert chip_smoke.bundle_phase(torch.device("cpu"), "cpu") > 0
+
+
+@pytest.mark.parametrize("which", ["homography", "handeye", "bundle", "handeye_fleet"])
 def test_generators_restate_the_benchmark_sets(which):
-    """chip_smoke's config-1 and config-4 sets and its hand-eye pipeline
+    """chip_smoke's config-1, config-4 and config-5 sets and its pipeline
     fleet equal the JAX package's benchmarks/problems.py and
-    benchmarks/pipeline_fleet.py ones (the fleet without its bundle
-    section). Asked of a fresh interpreter: those modules set torch's
-    default dtype."""
+    benchmarks/pipeline_fleet.py ones (the fleet with its bundle section).
+    Asked of a fresh interpreter: those modules set torch's default
+    dtype."""
     code = {
         "homography": "want, got = problems.homography_problems(5), chip_smoke.homography_problems(5)\n",
         "handeye": "want, got = problems.handeye_problems(3, 7), chip_smoke.handeye_problems(3, 7)\n",
+        "bundle": (
+            "w, g = problems.bundle_problems(3, num_obs=6), chip_smoke.bundle_problems(3, num_obs=6)\n"
+            "assert sorted(w) == sorted(g)\n"
+            "want, got = [w[k] for k in sorted(w)], [g[k] for k in sorted(w)]\n"
+        ),
         "handeye_fleet": (
             "import json, tempfile, pathlib\n"
             "from benchmarks import pipeline_fleet\n"
@@ -191,7 +223,8 @@ def test_generators_restate_the_benchmark_sets(which):
             "keys = ['obj', 'uv', 'bg', 'ct_gt', 'intr', 'g_gt', 'bt_gt']\n"
             "want, got = [w[k] for k in keys], [g[k] for k in keys]\n"
             "jw, jg = json.loads(pathlib.Path(w['input_path']).read_text()), json.loads(pathlib.Path(g['input_path']).read_text())\n"
-            "assert jw.pop('bundle') and sorted(jw) == sorted(jg) and jw['planar_detections'] == jg['planar_detections']\n"
+            "assert jw['bundle'] == jg['bundle'] and sorted(jw) == sorted(jg)\n"
+            "assert jw['planar_detections'] == jg['planar_detections']\n"
             "bases = [[o.pop('base_se3_gripper') for r in j['hand_eye']['rigs'] for o in r['observations']] for j in (jw, jg)]\n"
             "np.testing.assert_allclose(bases[1], bases[0], rtol=0, atol=1e-12)\n"
             "assert jw['hand_eye'] == jg['hand_eye']\n"

@@ -56,11 +56,15 @@ def report_tolerance(path: str):
     a 1e-9 absolute floor (pose entries near zero), the final cost 1e-7
     relative, per-view reprojection errors 1e-8 px; the refined hand-eye
     pose 1e-6 relative with a 1e-9 absolute floor and its covariance 1e-6
-    relative with a 1e-12 absolute floor."""
+    relative with a 1e-12 absolute floor; the bundle result's cameras and
+    poses as the hand-eye pose, its averaged initial target 1e-9 relative
+    with a 1e-12 absolute floor."""
     leaf = path.rsplit("/", 1)[-1]
     if "initial_guess" in path or "linear_kmtx" in path or "symmetric_rms_px" in path:
         return 1e-9, 0.0
-    if re.search(r"/optimization/(cameras|c_se3_r|r_se3_t)\[", path) or "/g_se3_c[" in path:
+    if "/initial_target[" in path:
+        return 1e-9, 1e-12
+    if re.search(r"/(optimization|result)/(cameras|c_se3_r|r_se3_t|b_se3_t)\[", path) or "/g_se3_c[" in path:
         return 1e-6, 1e-9
     if "/covariance[" in path:
         return 1e-6, 1e-12
@@ -99,7 +103,8 @@ def assert_reports_match(want, got, path=""):
         else:
             np.testing.assert_allclose(got, want, rtol=tol[0], atol=tol[1], err_msg=path)
     elif isinstance(want, str) and (
-        path.endswith("/optimization/report") or ("hand_eye" in path or "sensor_reports" in path) and path.endswith("/report")
+        path.endswith(("/optimization/report", "/result/report"))
+        or ("hand_eye" in path or "sensor_reports" in path) and path.endswith("/report")
     ):
         (wn, wt), (gn, gt) = _report_numbers(want), _report_numbers(got)
         assert wt == gt, (path, want, got)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's dense-LM cells, on one CUDA
 card: config1-b8192 (``homography_batch``), config4-b256
-(``handeye_batch``) and handeye-pipeline-64 (``bundle_pipeline`` without
-a bundle section), each with the data of ``chip_smoke.py``.
+(``handeye_batch``), config5-b128 (``bundle_batch``), handeye-pipeline-64
+(``bundle_pipeline`` without a bundle section) and bundle-pipeline-64
+(``bundle_pipeline`` with it: intrinsics, hand-eye, bundle), each with the
+data of ``chip_smoke.py``.
 
     python3 tools/profile_torch_cells.py [--repeats 5] [--out DIR]
 
-First the homography first-phase cap sweep: ``repeats`` warm calls per
-cap (2-6, and one phase), interleaved in the order A B .. Z Z .. A, with
-the median per cap. Then each cell's warm wall times (host clock,
+First the first-phase cap sweeps of the homography batch (caps 2-6) and
+of the bundle batch (caps 2-6 and 12, the reference's): ``repeats`` warm
+calls per cap and in one phase, interleaved in the order A B .. Z Z .. A,
+with the median per cap. Then each cell's warm wall times (host clock,
 synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
 share of the profiled wall) and one under cProfile (host functions by
@@ -38,7 +41,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from calibration_tpu_torch.parallel import batched, handeye_batch, homography_batch  # noqa: E402
+from calibration_tpu_torch.parallel import batched, bundle_batch, handeye_batch, homography_batch  # noqa: E402
 
 
 def synced(fn):
@@ -99,6 +102,25 @@ def report(name, fn, out_dir):
           f"(table in {out_dir / (name + '_cprofile.txt')})")
 
 
+def cap_sweep(name, fn, attr, caps, repeats):
+    """Warm walls of ``fn(two_phase=...)`` at each first-phase cap (the
+    module constant ``attr`` of batched) and in one phase (None),
+    interleaved A B .. Z Z .. A; prints the median per setting."""
+    caps = tuple(caps) + (None,)
+    times = {c: [] for c in caps}
+    saved = getattr(batched, attr)
+    fn()
+    for order in range(repeats):
+        for cap in (caps if order % 2 == 0 else caps[::-1]):
+            if cap is not None:
+                setattr(batched, attr, cap)
+            times[cap].append(synced(functools.partial(fn, two_phase=cap is not None)))
+    setattr(batched, attr, saved)
+    for cap in caps:
+        label = "one phase" if cap is None else f"cap {cap}"
+        print(f"[profile] {name} {label}: median {statistics.median(times[cap])!r} s, all {times[cap]!r}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=5)
@@ -120,34 +142,28 @@ def main() -> int:
     he = functools.partial(handeye_batch, torch.as_tensor(bg, device=dev), torch.as_tensor(ct, device=dev),
                            options=chip_smoke.HANDEYE_OPTS)
 
-    # the cap sweep first, before any profiler has run in this process
-    caps = (2, 3, 4, 5, 6, None)
-    times = {c: [] for c in caps}
-    saved = batched.HOMOG_PHASE_CAP
-    homog()
-    for order in range(args.repeats):
-        for cap in (caps if order % 2 == 0 else caps[::-1]):
-            if cap is not None:
-                batched.HOMOG_PHASE_CAP = cap
-            times[cap].append(synced(functools.partial(homog, two_phase=cap is not None)))
-    batched.HOMOG_PHASE_CAP = saved
-    for cap in caps:
-        label = "one phase" if cap is None else f"cap {cap}"
-        print(f"[profile] homography B={chip_smoke.HOMOG_LANES} {label}: median {statistics.median(times[cap])!r} s, "
-              f"all {times[cap]!r}")
+    bundle = functools.partial(bundle_batch, *chip_smoke.bundle_args(chip_smoke.bundle_problems(chip_smoke.BUNDLE_RIGS),
+                                                                      dev), opts=chip_smoke.BUNDLE_OPTS)
+
+    # the cap sweeps first, before any profiler has run in this process
+    cap_sweep(f"homography B={chip_smoke.HOMOG_LANES}", homog, "HOMOG_PHASE_CAP", range(2, 7), args.repeats)
+    cap_sweep(f"bundle B={chip_smoke.BUNDLE_RIGS}", bundle, "BUNDLE_PHASE_CAP", (2, 3, 4, 5, 6, 12), args.repeats)
 
     with tempfile.TemporaryDirectory() as tmp:
         fleet = chip_smoke.write_handeye_fleet(Path(tmp), chip_smoke.HE_PIPELINE_RIGS)
+        handeye_input = chip_smoke.pipeline_variant(fleet["input_path"], "handeye")
 
-        def pipeline():
+        def pipeline(input_path):
             from calibration_tpu_torch.apps import bundle_pipeline
 
             with contextlib.redirect_stdout(io.StringIO()):
-                rc = bundle_pipeline.main(["--input", fleet["input_path"], "--output", str(Path(tmp) / "a.json"),
+                rc = bundle_pipeline.main(["--input", input_path, "--output", str(Path(tmp) / "a.json"),
                                            "--device", "cuda"])
             assert rc == 0
 
-        cells = (("config1-b8192", homog), ("config4-b256", he), ("handeye-pipeline-64", pipeline))
+        cells = (("config1-b8192", homog), ("config4-b256", he), ("config5-b128", bundle),
+                 ("handeye-pipeline-64", functools.partial(pipeline, handeye_input)),
+                 ("bundle-pipeline-64", functools.partial(pipeline, fleet["input_path"])))
         # every timed call before the first profiler (it slows later launches)
         for name, fn in cells:
             warm_walls(name, fn, args.repeats, card)
