@@ -1,5 +1,6 @@
-"""Brown-Conrady lens distortion, forward map (port of
-``calibration_tpu/models/distortion.py::apply_distortion``).
+"""Brown-Conrady lens distortion, the forward map and its fixed-point
+inverse (port of ``calibration_tpu/models/distortion.py``:
+``apply_distortion`` and ``undistort``).
 
 Coefficients are ``[k1..kn, p1, p2]``: n radial terms, then two tangential.
 """
@@ -7,6 +8,8 @@ Coefficients are ``[k1..kn, p1, p2]``: n radial terms, then two tangential.
 from __future__ import annotations
 
 import torch
+
+UNDISTORT_ITERS = 5  # the reference's fixed schedule
 
 
 def apply_distortion(xy, coeffs):
@@ -27,3 +30,12 @@ def apply_distortion(xy, coeffs):
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return torch.stack([xd, yd], dim=-1)
+
+
+def undistort(xy, coeffs, iters: int = UNDISTORT_ITERS):
+    """Inverse distortion by ``iters`` fixed-point iterations (the
+    reference's fixed schedule)."""
+    und = xy
+    for _ in range(iters):
+        und = und + (xy - apply_distortion(und, coeffs))
+    return und

@@ -13,13 +13,61 @@ from . import camera_matrix as cm
 from . import distortion as dist
 
 PARAM_COUNT = 10
+NUM_DIST_COEFFS = 5
 IDX_FX, IDX_FY, IDX_SKEW = 0, 1, 4
+
+
+def pack(kmtx, coeffs):
+    """The flat 10-vector from K (..., 5) and coefficients [k.., p1, p2]
+    (..., D), D <= 5: zeros go between the radial and tangential terms."""
+    kmtx, coeffs = torch.as_tensor(kmtx), torch.as_tensor(coeffs)
+    d = coeffs.shape[-1]
+    if d < NUM_DIST_COEFFS:
+        nrad = d - 2
+        zeros = coeffs.new_zeros(coeffs.shape[:-1] + (3 - nrad,))
+        coeffs = torch.cat([coeffs[..., :nrad], zeros, coeffs[..., nrad:]], dim=-1)
+    return torch.cat([kmtx, coeffs.to(kmtx.dtype)], dim=-1)
+
+
+def apply_intrinsics(intr, pixel):
+    """Pixel -> normalized coordinates."""
+    return cm.normalize(intr[..., :5], pixel)
+
+
+def remove_intrinsics(intr, xy):
+    """Normalized coordinates -> pixel."""
+    return cm.denormalize(intr[..., :5], xy)
 
 
 def project(intr, xyz):
     """3D camera-frame point -> pixel. intr: (..., 10); xyz: (..., 3)."""
     norm = xyz[..., :2] / xyz[..., 2:3]
     return cm.denormalize(intr[..., :5], dist.apply_distortion(norm, intr[..., 5:]))
+
+
+def project_normalized(intr, xy):
+    """Normalized point -> pixel (distortion, then K)."""
+    return cm.denormalize(intr[..., :5], dist.apply_distortion(xy, intr[..., 5:]))
+
+
+def unproject(intr, pixel):
+    """Pixel -> undistorted normalized coordinates."""
+    return dist.undistort(cm.normalize(intr[..., :5], pixel), intr[..., 5:])
+
+
+def apply_linear_intrinsics(intr, xy):
+    """fx, fy and skew only, no principal point (the Scheimpflug model's
+    principal-ray shift)."""
+    u = intr[..., 0] * xy[..., 0] + intr[..., 4] * xy[..., 1]
+    v = intr[..., 1] * xy[..., 1]
+    return torch.stack([u, v], dim=-1)
+
+
+def remove_linear_intrinsics(intr, uv):
+    """Inverse of ``apply_linear_intrinsics``."""
+    y = uv[..., 1] / intr[..., 1]
+    x = (uv[..., 0] - intr[..., 4] * y) / intr[..., 0]
+    return torch.stack([x, y], dim=-1)
 
 
 def project_point_jacobians(intr, xyz):

@@ -1,9 +1,6 @@
-"""Camera model registry (port of ``calibration_tpu/models/registry.py``).
-
-Only the pinhole + Brown-Conrady model is ported so far; the spec carries
-the fields the intrinsics solver reads. ``get_model`` knows the reference's
-names: a Scheimpflug name raises ``NotImplementedError`` (not ported yet),
-an unknown name ``KeyError``.
+"""Camera model registry (port of ``calibration_tpu/models/registry.py``):
+a model is a named bundle of functions over a flat parameter vector, and
+the solvers are generic over it.
 """
 
 from __future__ import annotations
@@ -11,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from . import pinhole
+from . import pinhole, scheimpflug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +21,17 @@ class CameraModelSpec:
     # start of the [k1, k2, k3, p1, p2] distortion vector in the flat packing
     idx_dist0: int
     project: Callable  # (intr, xyz[..., 3]) -> uv[..., 2]
+    unproject: Callable  # (intr, uv[..., 2]) -> model-native xy[..., 2]
+    apply_intrinsics: Callable  # pixel -> normalized
+    remove_intrinsics: Callable  # normalized -> pixel
+    # pixel -> z = 1 normalized camera-frame xy (ray / ray_z): ``unproject``
+    # for pinhole; through the ray for tilted-sensor models
+    unproject_normalized: Callable
+    # the port's own field, after the reference's: whether the fleet's
+    # float32 reprojection-RMS QA recheck runs for this model (its CUDA
+    # kernel projects through the pinhole model; the reference skips the
+    # recheck for every other model)
+    qa_recheck: bool = False
 
 
 PINHOLE = CameraModelSpec(
@@ -34,17 +42,36 @@ PINHOLE = CameraModelSpec(
     idx_skew=pinhole.IDX_SKEW,
     idx_dist0=pinhole.IDX_SKEW + 1,
     project=pinhole.project,
+    unproject=pinhole.unproject,
+    apply_intrinsics=pinhole.apply_intrinsics,
+    remove_intrinsics=pinhole.remove_intrinsics,
+    unproject_normalized=pinhole.unproject,
+    qa_recheck=True,
 )
 
-MODELS = {PINHOLE.name: PINHOLE, "pinhole": PINHOLE}
-# the reference's other model, ported with the remaining models
-NOT_PORTED = ("scheimpflug_pinhole_brown_conrady", "scheimpflug")
+SCHEIMPFLUG = CameraModelSpec(
+    name="scheimpflug_pinhole_brown_conrady",
+    param_count=scheimpflug.PARAM_COUNT,
+    idx_fx=scheimpflug.IDX_FX,
+    idx_fy=scheimpflug.IDX_FY,
+    idx_skew=scheimpflug.IDX_SKEW,
+    idx_dist0=scheimpflug.IDX_SKEW + 1,
+    project=scheimpflug.project,
+    unproject=scheimpflug.unproject,
+    apply_intrinsics=scheimpflug.apply_intrinsics,
+    remove_intrinsics=scheimpflug.remove_intrinsics,
+    unproject_normalized=scheimpflug.unproject_normalized,
+)
+
+SPECS = (PINHOLE, SCHEIMPFLUG)
+MODELS = {m.name: m for m in SPECS}
+# short aliases used by configs
+MODELS["pinhole"] = PINHOLE
+MODELS["scheimpflug"] = SCHEIMPFLUG
 
 
 def get_model(name: str) -> CameraModelSpec:
-    if name in MODELS:
+    try:
         return MODELS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"Camera model '{name}' is not ported yet")
-    known = sorted(set(MODELS) | set(NOT_PORTED))
-    raise KeyError(f"Unknown camera model '{name}'; known: {known}")
+    except KeyError:
+        raise KeyError(f"Unknown camera model '{name}'; known: {sorted(MODELS)}") from None

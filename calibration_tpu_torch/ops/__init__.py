@@ -4,7 +4,9 @@ from . import (
     homography,
     intrinsics_linear,
     linalg,
+    linescan,
     planarpose,
+    planefit,
     projection_residuals,
     se3,
     zhang,
@@ -16,7 +18,9 @@ __all__ = [
     "homography",
     "intrinsics_linear",
     "linalg",
+    "linescan",
     "planarpose",
+    "planefit",
     "projection_residuals",
     "se3",
     "zhang",

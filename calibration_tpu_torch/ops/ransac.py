@@ -1,6 +1,7 @@
 """Batched RANSAC over many independent problems (port of
 ``calibration_tpu/ops/ransac.py``: ``RansacOptions``,
-``calculate_iterations``, ``ransac`` and ``ransac_homography``).
+``calculate_iterations``, ``ransac``, ``ransac_homography`` and
+``ransac_plane``).
 
 The reference runs one RANSAC per problem as a ``lax.while_loop`` over
 ROUNDS of ``round_size`` hypotheses (one batched fit and one batched scoring
@@ -16,9 +17,10 @@ axis, one lane per problem, and the round loop runs on the host:
   once per round.
 - Sampling without replacement is the Gumbel top-k trick over the lane's
   valid data. A round's ``(round_size, N)`` noise comes from one function,
-  ``round_noise``, seeded from ``(options.seed, round)``, and every lane
-  shares it, as every vmapped view shares the reference's one key. So a
-  lane's result does not depend on which lanes share its batch. Torch cannot
+  ``round_noise``, seeded from ``(options.seed, round)`` and drawn on the
+  CPU, and every lane shares it, as every vmapped view shares the
+  reference's one key. So a lane's result does not depend on which lanes
+  share its batch, nor on the device. Torch cannot
   reproduce JAX's threefry stream; the tests substitute JAX's draws for
   ``round_noise`` and then hold the port equal to JAX lane for lane.
 
@@ -35,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import homography as H
+from . import planefit
 
 rounds: collections.Counter = collections.Counter()
 
@@ -93,12 +96,15 @@ class RansacResult(NamedTuple):
 
 def round_noise(seed: int, r: int, shape, device) -> torch.Tensor:
     """Standard Gumbel noise (float64, ``shape`` = (round_size, N)) for round
-    ``r``, from a ``torch.Generator`` on ``device`` seeded from (seed, r).
-    Every lane of a round shares it."""
-    gen = torch.Generator(device=device)
+    ``r``, drawn on the CPU from a ``torch.Generator`` seeded from (seed, r)
+    and moved to ``device``: the card and the CPU draw the same stream, so a
+    lane's result does not depend on the device either. Every lane of a
+    round shares it."""
+    gen = torch.Generator()
     gen.manual_seed(((seed << 32) | r) & (2**63 - 1))
-    u = torch.rand(shape, generator=gen, dtype=torch.float64, device=device)
-    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float64).tiny)))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float64).tiny)))
+    return g.to(device)
 
 
 def _lane_gather(a, idx):
@@ -243,6 +249,38 @@ def ransac_homography(obj_xy, img_uv, options: RansacOptions = RansacOptions(), 
         fit_fn=fit,
         residual_fn=resid,
         k_min_samples=H.MIN_SAMPLES,
+        options=options,
+        mask=mask,
+        degenerate_fn=degen,
+        refit_fn=refit,
+    )
+
+
+def ransac_plane(pts, options: RansacOptions = RansacOptions(), mask=None):
+    """The 3-point plane estimator under RANSAC, over L lanes: minimal
+    3-point fit, point-plane distance residual, near-collinear degeneracy
+    check, SVD refit on all inliers. pts: (L, N, 3); mask: optional
+    (L, N)."""
+
+    def fit(d):
+        p = d["pts"]
+        return planefit.fit_plane_3pt(p[..., 0, :], p[..., 1, :], p[..., 2, :])
+
+    def resid(planes, d):
+        return planefit.plane_point_distance(planes, d["pts"][:, None])
+
+    def degen(d):
+        p = d["pts"]
+        return torch.linalg.norm(torch.linalg.cross(p[..., 1, :] - p[..., 0, :], p[..., 2, :] - p[..., 0, :]), dim=-1) < 1e-12
+
+    def refit(d, inl):
+        return planefit.fit_plane_svd(d["pts"], inl), inl.sum(dim=-1) >= 3
+
+    return ransac(
+        {"pts": pts},
+        fit_fn=fit,
+        residual_fn=resid,
+        k_min_samples=3,
         options=options,
         mask=mask,
         degenerate_fn=degen,

@@ -66,20 +66,22 @@ class OptimResult:
     initial_cost: float = 0.0
 
 
-def check_ported(model=None, precision: str = "f64", mesh=None) -> None:
-    """The port takes the reference's parameters and honours the pinhole
-    model (a spec or a name), ``precision="f64"`` and ``mesh=None``; any
-    other value raises ``NotImplementedError`` (not ported yet)."""
-    if model is not None:
-        from ..models.registry import PINHOLE, get_model
+def check_ported(model=None, precision: str = "f64", mesh=None, models=("pinhole_brown_conrady",)):
+    """The port takes the reference's parameters and honours, per caller,
+    the camera models named in ``models`` (a model given as a spec or a
+    name), ``precision="f64"`` and ``mesh=None``; any other value raises
+    ``NotImplementedError`` (not ported yet). Returns the port's spec of
+    ``model`` (pinhole when it is None)."""
+    from ..models.registry import PINHOLE, get_model
 
-        name = getattr(model, "name", model)
-        if get_model(name).name != PINHOLE.name:
-            raise NotImplementedError(f"Camera model '{name}' is not ported yet")
+    spec = PINHOLE if model is None else get_model(getattr(model, "name", model))
+    if spec.name not in models:
+        raise NotImplementedError(f"Camera model '{spec.name}' is not ported yet on this path")
     if precision != "f64":
         raise NotImplementedError(f"precision '{precision}' is not ported yet (f64 only)")
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet")
+    return spec
 
 
 def brief_report(result: "OptimResult") -> str:

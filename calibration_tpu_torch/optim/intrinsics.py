@@ -1,26 +1,30 @@
-"""Joint intrinsics + per-view pose refinement for the pinhole model,
-batched over cameras (port of ``calibration_tpu/optim/intrinsics.py``:
-``optimize_intrinsics_device`` at float64 with the Schur or the dense
-solver, ``intrinsics_covariance_device``, and the host wrapper
-``optimize_intrinsics``).
+"""Joint intrinsics + per-view pose refinement, generic over the camera
+model and batched over cameras (port of
+``calibration_tpu/optim/intrinsics.py``: ``optimize_intrinsics_device`` at
+float64 with the Schur or the dense solver, ``intrinsics_covariance_device``,
+and the host wrapper ``optimize_intrinsics``).
 
 Parameter layout per camera: [intr(pc), quat_0..quat_V, t_0..t_V], the
 reference's IntrinsicBlocks order. One Huber block per view. fx, fy get a
 zero lower bound; skew is frozen unless ``optimize_skew``. The Schur
-solver's Jacobian is the analytic ``_view_residual_jac_pinhole``, which the
-reference's tests hold equal to its jacfwd; the dense solver (``lm_core``)
+solver's Jacobian is the analytic ``_view_residual_jac_pinhole`` for the
+pinhole model (``ANALYTIC_VIEW_JACOBIANS``; the reference's tests hold it
+equal to its jacfwd) and the
+forward-mode ``lm_schur.view_jacobian_fn`` for every other model, as the
+reference runs jacfwd for them; the dense solver (``lm_core``)
 differentiates the whole residual by forward-mode autodiff.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..models.camera_matrix import CalibrationBounds
-from ..models.registry import PINHOLE
+from ..models.registry import PINHOLE, SCHEIMPFLUG
 from ..ops import se3
 from . import blocks, lm, lm_schur
 from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
@@ -47,13 +51,17 @@ def make_manifold(pc: int, num_views: int) -> ProductManifold:
     return ProductManifold([euclid(pc)] + [quat()] * num_views + [euclid(3)] * num_views)
 
 
-def reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask):
+# the camera models the intrinsics solvers take (check_ported)
+MODELS = (PINHOLE.name, SCHEIMPFLUG.name)
+
+
+def reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask, model=PINHOLE):
     """(B, V, N, 2) masked pixel residuals. intr (B, pc); quats (B, V, 4);
     trans (B, V, 3); obj_xy/img_uv (B, V, N, 2); mask (B, V, N)."""
     rot = se3.quat_to_rotmat(quats)  # (B, V, 3, 3)
     pts = torch.cat([obj_xy, torch.zeros_like(obj_xy[..., :1])], dim=-1)
     pc3 = pts @ rot.transpose(-1, -2) + trans[..., None, :]
-    uv_hat = PINHOLE.project(intr[:, None, None, :], pc3)
+    uv_hat = model.project(intr[:, None, None, :], pc3)
     return (uv_hat - img_uv) * mask[..., None]
 
 
@@ -63,17 +71,25 @@ def _unpack(x, pc, v):
     return x[..., :pc], x[..., pc : pc + 4 * v].reshape(lead + (v, 4)), x[..., pc + 4 * v :].reshape(lead + (v, 3))
 
 
-def _residual_flat(x, obj_xy, img_uv, mask):
+def _residual_flat(x, obj_xy, img_uv, mask, model=PINHOLE):
     """The dense solver's residual (B, 2NV) of the flat parameters."""
     v = obj_xy.shape[-3]
-    r = reproject_residuals(*_unpack(x, x.shape[-1] - 7 * v, v), obj_xy, img_uv, mask)
+    r = reproject_residuals(*_unpack(x, x.shape[-1] - 7 * v, v), obj_xy, img_uv, mask, model)
     return r.reshape(r.shape[:-3] + (-1,))
 
 
-def _view_residual(intr, quats, trans, obj_xy, img_uv, mask):
+def _view_residual(intr, quats, trans, obj_xy, img_uv, mask, model=PINHOLE):
     """Per-view flattened residuals (B, V, 2N), rows interleaved (u, v)."""
-    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask)
+    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask, model)
     return r.reshape(r.shape[:-2] + (-1,))
+
+
+def _view_functions(model):
+    """(residual_fn, jac_fn) of the Schur engine for ``model``: its analytic
+    Jacobian where ``ANALYTIC_VIEW_JACOBIANS`` holds one, forward-mode
+    autodiff for any other model."""
+    res = functools.partial(_view_residual, model=model)
+    return res, ANALYTIC_VIEW_JACOBIANS.get(model.name) or lm_schur.view_jacobian_fn(res)
 
 
 def _skew_z0(pts):
@@ -108,6 +124,10 @@ def _view_residual_jac_pinhole(intr, quats, trans, obj_xy, img_uv, mask):
     return jac.reshape(jac.shape[:-3] + (-1, jac.shape[-1]))
 
 
+# the models with an analytic per-view Jacobian, by name (``_view_functions``)
+ANALYTIC_VIEW_JACOBIANS = {PINHOLE.name: _view_residual_jac_pinhole}
+
+
 def _fixed_slot_list(opts: IntrinsicsOptimOptions):
     """Packed distortion slots for opts.fixed_distortion_indices (indices
     address [k1..k_nr, p1, p2]; validated)."""
@@ -120,14 +140,14 @@ def _fixed_slot_list(opts: IntrinsicsOptimOptions):
     return slots
 
 
-def _free_mask(opts, fixed_slots, pc, b, v, view_valid, device):
+def _free_mask(model, opts, fixed_slots, pc, b, v, view_valid, device):
     """(B, pc + 7V) ambient free mask: skew frozen unless optimize_skew,
     fixed distortion slots frozen, invalid views' pose blocks frozen."""
     free = np.ones((pc + 7 * v,), bool)
     if not opts.optimize_skew:
-        free[PINHOLE.idx_skew] = False
+        free[model.idx_skew] = False
     for slot in fixed_slots:
-        free[PINHOLE.idx_dist0 + slot] = False
+        free[model.idx_dist0 + slot] = False
     free = torch.as_tensor(free, device=device).expand(b, pc + 7 * v)
     if view_valid is not None:
         vv = view_valid.bool()
@@ -150,17 +170,17 @@ def intrinsics_covariance_device(obj_xy, img_uv, intr, poses, mask=None, model=P
     a phased solve can defer covariance to one final pass. Every tensor has
     a leading B axis (the reference's takes one camera).
     Returns (cov (B, pc+7V, pc+7V), cov_ok (B,))."""
-    check_ported(model)
+    model = check_ported(model, models=MODELS)
     opts = opts or IntrinsicsOptimOptions()
     b, v = obj_xy.shape[0], obj_xy.shape[1]
-    pc = PINHOLE.param_count
+    pc = model.param_count
     mask = _prepare_mask(obj_xy, mask, view_valid)
     manifold = make_manifold(pc, v)
-    free = _free_mask(opts, _fixed_slot_list(opts), pc, b, v, view_valid, obj_xy.device)
+    free = _free_mask(model, opts, _fixed_slot_list(opts), pc, b, v, view_valid, obj_xy.device)
     quats, trans = blocks.poses_to_quat_tran(poses)
     x = blocks.pack_intr_quats_trans(intr, quats, trans)
     c_t, _ = lm_schur.tangent_covariance(
-        _view_residual, _view_residual_jac_pinhole, intr, quats, trans,
+        *_view_functions(model), intr, quats, trans,
         (obj_xy, img_uv, mask),
         tan_free=manifold.ambient_to_tangent_mask(free).to(x.dtype),
         huber_delta=opts.core.huber_delta,
@@ -176,10 +196,12 @@ def optimize_intrinsics_device(
     leading B axis on every tensor (the reference's takes one camera).
     obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc); init_poses:
     (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V) (invalid
-    views get zero residuals and frozen pose blocks). ``model`` is the
-    pinhole model and ``precision`` "f64" (``check_ported``).
-    ``analytic_jac`` is accepted for any value: the Schur solver's analytic
-    Jacobian equals the reference's jacfwd to 1e-10.
+    views get zero residuals and frozen pose blocks). ``model`` is a
+    registry model or its name, pinhole or Scheimpflug, and ``precision``
+    "f64" (``check_ported``). ``analytic_jac`` is accepted for any value:
+    pinhole's analytic Jacobian equals the reference's jacfwd to 1e-10, and
+    every other model is differentiated by forward-mode autodiff, as in the
+    reference.
 
     solver: "schur" (default) eliminates the per-view pose blocks
     (``lm_core_schur``, block-inverse covariance); "dense" runs the generic
@@ -189,10 +211,10 @@ def optimize_intrinsics_device(
     Returns (LMOutput, intr (B, pc), poses (B, V, 4, 4), view_errors (B, V),
     cov (B, pc+7V, pc+7V), cov_ok (B,)).
     """
-    check_ported(model, precision)
+    model = check_ported(model, precision, models=MODELS)
     opts = opts or IntrinsicsOptimOptions()
     b, v = obj_xy.shape[0], obj_xy.shape[1]
-    pc = PINHOLE.param_count
+    pc = model.param_count
     dtype, device = obj_xy.dtype, obj_xy.device
     mask = _prepare_mask(obj_xy, mask, view_valid)
 
@@ -201,28 +223,29 @@ def optimize_intrinsics_device(
     init_intr = init_intr.clone()
     for i, slot in enumerate(fixed_slots):
         vals = opts.fixed_distortion_values
-        init_intr[:, PINHOLE.idx_dist0 + slot] = vals[i] if i < len(vals) else 0.0
+        init_intr[:, model.idx_dist0 + slot] = vals[i] if i < len(vals) else 0.0
     quats, trans = blocks.poses_to_quat_tran(init_poses)
     manifold = make_manifold(pc, v)
-    free = _free_mask(opts, fixed_slots, pc, b, v, view_valid, device)
+    free = _free_mask(model, opts, fixed_slots, pc, b, v, view_valid, device)
     lower_g = torch.full((pc,), -torch.inf, dtype=dtype, device=device)
-    lower_g[PINHOLE.idx_fx] = 0.0
-    lower_g[PINHOLE.idx_fy] = 0.0
+    lower_g[model.idx_fx] = 0.0
+    lower_g[model.idx_fy] = 0.0
     if solver == "dense":
-        return _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold)
+        return _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model)
     if solver != "schur":
         raise ValueError(f"unknown solver '{solver}'")
 
     view_data = (obj_xy, img_uv, mask)
+    view_fns = _view_functions(model)
     sout = lm_schur.lm_core_schur(
-        _view_residual, _view_residual_jac_pinhole, init_intr, quats, trans, view_data,
+        *view_fns, init_intr, quats, trans, view_data,
         options=opts.core, g_free=free[:, :pc], view_valid=view_valid, lower_g=lower_g,
     )
     out = sout.as_lm_output(blocks.pack_intr_quats_trans)
     n_amb = pc + 7 * v
     if opts.core.compute_covariance:
         c_t, _ = lm_schur.tangent_covariance(
-            _view_residual, _view_residual_jac_pinhole, sout.xg, sout.quats, sout.trans,
+            *view_fns, sout.xg, sout.quats, sout.trans,
             view_data, tan_free=manifold.ambient_to_tangent_mask(free).to(dtype),
             huber_delta=opts.core.huber_delta,
         )
@@ -232,30 +255,31 @@ def optimize_intrinsics_device(
         cov_ok = torch.zeros((b,), dtype=torch.bool, device=device)
 
     poses = blocks.quat_tran_to_poses(sout.quats, sout.trans)
-    view_errors = _view_errors(sout.xg, sout.quats, sout.trans, obj_xy, img_uv, mask)
+    view_errors = _view_errors(sout.xg, sout.quats, sout.trans, obj_xy, img_uv, mask, model)
     return out, sout.xg, poses, view_errors, cov, cov_ok
 
 
-def _view_errors(intr, quats, trans, obj_xy, img_uv, mask):
-    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask)
+def _view_errors(intr, quats, trans, obj_xy, img_uv, mask, model):
+    r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask, model)
     cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
     return torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
 
 
-def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold):
+def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model):
     """``optimize_intrinsics_device`` with solver="dense"."""
     b, v, n = obj_xy.shape[:3]
     pc = init_intr.shape[-1]
     lower = torch.cat([lower_g, torch.full((7 * v,), -torch.inf, dtype=lower_g.dtype, device=lower_g.device)])
     block_ids = np.repeat(np.arange(v), 2 * n)
     data = (obj_xy, img_uv, mask)
+    res = functools.partial(_residual_flat, model=model)
     out = lm.lm_core(
-        _residual_flat, blocks.pack_intr_quats_trans(init_intr, quats, trans), manifold, data=data,
+        res, blocks.pack_intr_quats_trans(init_intr, quats, trans), manifold, data=data,
         options=opts.core, free_mask=free, block_ids=block_ids, num_blocks=v, lower=lower,
     )
     if opts.core.compute_covariance:
         cov, cov_ok = lm.covariance(
-            _residual_flat, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v,
+            res, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v,
             huber_delta=opts.core.huber_delta,
         )
     else:
@@ -264,7 +288,7 @@ def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, l
         cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
     intr, quats_f, trans_f = _unpack(out.x, pc, v)
     poses = blocks.quat_tran_to_poses(quats_f, trans_f)
-    return out, intr, poses, _view_errors(intr, quats_f, trans_f, obj_xy, img_uv, mask), cov, cov_ok
+    return out, intr, poses, _view_errors(intr, quats_f, trans_f, obj_xy, img_uv, mask, model), cov, cov_ok
 
 
 @dataclasses.dataclass

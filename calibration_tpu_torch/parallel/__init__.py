@@ -6,10 +6,12 @@ from .batched import (
     homography_batch,
     intrinsics_batch,
     intrinsics_facade_batch,
+    linescan_batch,
+    linescan_ransac_batch,
     reprojection_rms_batch,
 )
 
 __all__ = [
     "batched", "bundle_batch", "extrinsics_batch", "handeye_batch", "homography_batch", "intrinsics_batch",
-    "intrinsics_facade_batch", "reprojection_rms_batch",
+    "intrinsics_facade_batch", "linescan_batch", "linescan_ransac_batch", "reprojection_rms_batch",
 ]

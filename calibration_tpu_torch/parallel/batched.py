@@ -1,14 +1,17 @@
-"""Batched homography, planar-intrinsics, extrinsics, hand-eye and bundle
-entry points (port of those parts of ``calibration_tpu/parallel/batched.py``).
+"""Batched homography, planar-intrinsics, extrinsics, hand-eye, bundle and
+line-scan entry points (port of those parts of
+``calibration_tpu/parallel/batched.py``).
 
 The reference lifts single-problem cores over a problem axis with
 ``jax.vmap`` inside one jitted program. Here every core already takes a
 leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
 between phases becomes a host decision. Every entry point takes the
 reference's parameters in its order; ``mesh`` (sharding), precisions other
-than "f64" and models other than pinhole raise ``NotImplementedError``
-(``check_ported``), and ``analytic_jac`` is accepted for any value (the
-analytic Jacobians equal jacfwd to 1e-10).
+than "f64" and camera models a path does not take raise
+``NotImplementedError`` (``check_ported``: the intrinsics and line-scan
+paths take pinhole and Scheimpflug, the others pinhole), and
+``analytic_jac`` is accepted for any value (the analytic Jacobians equal
+jacfwd to 1e-10; other models always use forward-mode autodiff).
 """
 
 from __future__ import annotations
@@ -18,15 +21,19 @@ from typing import Optional
 
 import torch
 
-from ..models.registry import PINHOLE
+from ..models.registry import PINHOLE, SCHEIMPFLUG, SPECS
 from ..ops import handeye_linear, intrinsics_linear, planarpose
 from ..ops import homography as H
+from ..ops import linescan as ls
+from ..ops import planefit
+from ..ops.ransac import RansacOptions, ransac_plane
 from ..ops.projection_residuals import projection_rms_f32
 from ..optim.bundle import BundleOptions, optimize_bundle_device
 from ..optim.core import OptimOptions, check_ported
 from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
 from ..optim.handeye import optimize_handeye_device
 from ..optim.homography import homography_covariance_device, optimize_homography_device
+from ..optim.intrinsics import MODELS as INTRINSICS_MODELS
 from ..optim.intrinsics import (
     IntrinsicsOptimOptions,
     intrinsics_covariance_device,
@@ -63,6 +70,23 @@ HOMOG_PHASE_CAP = 5
 # reference's TPU-tuned cap is 12; its CALIB_BUNDLE_PHASE_CAP override is
 # not ported.)
 BUNDLE_PHASE_CAP = 5
+# The Scheimpflug intrinsics run every lane up to a cap, then only the
+# unconverged lanes: one cap when fixed_distortion_indices pins some
+# coefficients (the reference pins p1 and p2, which makes the tilt
+# identifiable: 8-28 linearizations per lane on row 2S), another when every
+# coefficient is free (the solve wanders the flat tilt/tangential valley
+# for many more). Measured on an H100 (tools/profile_torch_cells.py, row
+# 2S's set at B = 256, 7 interleaved warm calls per setting, two runs):
+# with p1, p2 fixed, caps 6 / 8 / 10 / 12 / 15 / 20 and one phase gave
+# medians 1.512 / 1.174 / 1.064 / 1.055 / 1.079 / 1.167 / 1.187 s, then
+# 1.458 / 1.217 / 1.215 / 1.194 / 1.118 / 1.164 / 1.291 s: a flat bottom
+# at 10-15; below it restarts add linearizations. With every coefficient
+# free, caps 10 / 15 / 20 / 30 / 40 and one phase gave 3.636 / 4.385 /
+# 4.024 / 4.022 / 4.002 / 4.217 s, then 3.181 / 3.473 / 3.326 / 3.106 /
+# 3.245 / 3.315 s: all inside the calls' spread, 10 lowest or second
+# lowest. (The reference's TPU-tuned caps are 12 and 30.)
+SCHEIMPFLUG_PHASE_CAP_FIXED = 12
+SCHEIMPFLUG_PHASE_CAP_FREE = 10
 
 
 def _phase_budget(total: int, caps: tuple) -> tuple:
@@ -126,42 +150,54 @@ def _phased_lm(solve, data_args, init_sol, schedule):
     return lm_m, sol_m
 
 
-def _phased_solve(opts: IntrinsicsOptimOptions):
+def _phased_solve(opts: IntrinsicsOptimOptions, model):
     def solve(iters, obj, uv, mask, view_valid, init_intr, init_poses):
         core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
         return optimize_intrinsics_device(
-            obj, uv, init_intr, init_poses, mask=mask,
+            obj, uv, init_intr, init_poses, mask=mask, model=model,
             opts=dataclasses.replace(opts, core=core), view_valid=view_valid,
         )
 
     return solve
 
 
-def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase):
+def _intrinsics_phase_cap(model, opts: IntrinsicsOptimOptions) -> int:
+    """The first phase's iteration cap for ``model`` under ``opts``: each
+    model's (cap with fixed distortion indices, cap with every coefficient
+    free), read when called so a sweep can set the constants."""
+    fixed, free = {
+        PINHOLE.name: (TWO_PHASE_CAP_A, TWO_PHASE_CAP_A),
+        SCHEIMPFLUG.name: (SCHEIMPFLUG_PHASE_CAP_FIXED, SCHEIMPFLUG_PHASE_CAP_FREE),
+    }[model.name]
+    return fixed if opts.fixed_distortion_indices else free
+
+
+def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase, model):
     """LM refine (+ covariance): one solve over the batch, or the phased
     solve with covariance deferred to one pass over the merged solution."""
     if not two_phase:
         return optimize_intrinsics_device(
-            obj, uv, init_intr, init_poses, mask=mask, opts=opts, view_valid=view_valid
+            obj, uv, init_intr, init_poses, mask=mask, model=model, opts=opts, view_valid=view_valid
         )
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
-        _phased_solve(opts), (obj, uv, mask, view_valid), (init_intr, init_poses),
-        _phase_budget(opts.core.max_iterations, (TWO_PHASE_CAP_A,)),
+        _phased_solve(opts, model), (obj, uv, mask, view_valid), (init_intr, init_poses),
+        _phase_budget(opts.core.max_iterations, (_intrinsics_phase_cap(model, opts),)),
     )
     b, v = obj.shape[0], obj.shape[1]
     if opts.core.compute_covariance:
         cov, cov_ok = intrinsics_covariance_device(
-            obj, uv, intr_m, poses_m, mask=mask, opts=opts, view_valid=view_valid
+            obj, uv, intr_m, poses_m, mask=mask, model=model, opts=opts, view_valid=view_valid
         )
     else:
-        n_amb = PINHOLE.param_count + 7 * v
+        n_amb = model.param_count + 7 * v
         cov = torch.zeros((b, n_amb, n_amb), dtype=obj.dtype, device=obj.device)
         cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj.device)
     return lm_m, intr_m, poses_m, err_m, cov, cov_ok
 
 
-def _init_intr(kmtx):
-    zeros = torch.zeros(kmtx.shape[:-1] + (PINHOLE.param_count - 5,), dtype=kmtx.dtype, device=kmtx.device)
+def _init_intr(kmtx, model):
+    """The seed camera: K, every further parameter (distortion, tilt) zero."""
+    zeros = torch.zeros(kmtx.shape[:-1] + (model.param_count - 5,), dtype=kmtx.dtype, device=kmtx.device)
     return torch.cat([kmtx, zeros], dim=-1)
 
 
@@ -183,7 +219,7 @@ def intrinsics_batch(
     -> on for B >= TWO_PHASE_MIN_BATCH. Returns (seed, (LMOutput, intr,
     poses, view_errors, cov, cov_ok)).
     """
-    check_ported(model_name, precision, mesh)
+    model = check_ported(model_name, precision, mesh, models=INTRINSICS_MODELS)
     opts = opts or IntrinsicsOptimOptions()
     if mask is None:
         mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
@@ -195,8 +231,8 @@ def intrinsics_batch(
     if two_phase is None:
         two_phase = obj_xy.shape[0] >= TWO_PHASE_MIN_BATCH
     out = _refine(
-        obj_xy, img_uv, mask.to(obj_xy.dtype), None, _init_intr(kmtx), seed.c_se3_t,
-        opts, two_phase,
+        obj_xy, img_uv, mask.to(obj_xy.dtype), None, _init_intr(kmtx, model), seed.c_se3_t,
+        opts, two_phase, model,
     )
     return seed, out
 
@@ -223,12 +259,15 @@ def intrinsics_facade_batch(
     (``reprojection_rms_batch``).
 
     obj_xy/img_uv: (B, V, N, 2) float64; mask: (B, V, N); view_valid:
-    (B, V). two_phase: None -> on for B >= TWO_PHASE_MIN_BATCH.
+    (B, V). two_phase: None -> on for B >= TWO_PHASE_MIN_BATCH. The QA
+    recheck runs for a model whose spec has ``qa_recheck`` (pinhole): for
+    another model ``rms_check`` is zero and no kernel runs, as in the
+    reference.
 
     Returns (seed, pose_ok (B, V), (LMOutput, intr, poses, view_errors,
     cov, cov_ok), rms_check (B, V) float32).
     """
-    check_ported(model_name, precision, mesh)
+    model = check_ported(model_name, precision, mesh, models=INTRINSICS_MODELS)
     opts = opts or IntrinsicsOptimOptions()
     dtype, device = obj_xy.dtype, obj_xy.device
     b, v = obj_xy.shape[0], obj_xy.shape[1]
@@ -252,8 +291,11 @@ def intrinsics_facade_batch(
 
     if two_phase is None:
         two_phase = b >= TWO_PHASE_MIN_BATCH
-    out = _refine(obj_xy, img_uv, vmask, view_valid, _init_intr(kmtx), init_poses, opts, two_phase)
-    rms_check = reprojection_rms_batch(out[2], out[1], obj_xy, img_uv, vmask)
+    out = _refine(obj_xy, img_uv, vmask, view_valid, _init_intr(kmtx, model), init_poses, opts, two_phase, model)
+    if model.qa_recheck:
+        rms_check = reprojection_rms_batch(out[2], out[1], obj_xy, img_uv, vmask)
+    else:
+        rms_check = torch.zeros((b, v), dtype=torch.float32, device=device)
     return seed, pose_ok, out, rms_check
 
 
@@ -453,3 +495,67 @@ def bundle_batch(
     cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
     cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
     return lm_m, intr_m, g_m, b_m, cov, cov_ok
+
+
+# the camera models the line-scan paths take: every registry model (the
+# lift needs only its ``unproject_normalized``)
+LINESCAN_MODELS = tuple(m.name for m in SPECS)
+
+
+def _linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh):
+    """The lifted laser points of a batch of rigs: every target and laser
+    pixel unprojected through the camera model (distortion, and sensor tilt
+    for Scheimpflug), then ``lift_laser_points``. Returns (points
+    (B, V*L, 3), point mask (B, V*L), views_ok (B,))."""
+    model = check_ported(model_name, mesh=mesh, models=LINESCAN_MODELS)
+    cam = camera[:, None, None, :]
+    return ls.lift_laser_points(
+        obj_xy, model.unproject_normalized(cam, target_uv), model.unproject_normalized(cam, laser_uv),
+        target_mask=target_mask, laser_mask=laser_mask,
+    )
+
+
+def linescan_batch(camera, obj_xy, target_uv, laser_uv, target_mask=None,
+                   laser_mask=None, mesh=None, model_name: str = "pinhole_brown_conrady"):
+    """Laser-plane calibration for a batch of line-scan rigs (SVD plane
+    fit).
+
+    camera: (B, pc) flat intrinsics for ``model_name`` (10 for pinhole, 12
+    for Scheimpflug); obj_xy/target_uv: (B, V, N, 2) target detections;
+    laser_uv: (B, V, L, 2) laser pixels; masks optional (B, V, N) and
+    (B, V, L). Returns a LineScanResult batch (plane (B, 4), covariance
+    (B, 4, 4) zero, homography (B, 3, 3), rms_error (B,), inlier_count
+    (B,), ok (B,)).
+    """
+    return ls.fit_laser_plane(
+        *_linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh)
+    )
+
+
+def linescan_ransac_batch(
+    camera, obj_xy, target_uv, laser_uv, target_mask=None, laser_mask=None,
+    options=None, mesh=None,
+    model_name: str = "pinhole_brown_conrady",
+):
+    """Laser-plane calibration with the RANSAC plane fit for a batch of
+    rigs, the outlier-robust variant of ``linescan_batch``: every rig is a
+    lane of ``ransac_plane`` over its (V*L, 3) lifted laser points, 3-point
+    hypotheses scored by plane distance, the inliers refit by SVD.
+
+    Arguments as ``linescan_batch`` plus RANSAC ``options`` (default
+    ``RansacOptions(thresh=0.005, min_inliers=12)``; thresh is in metres,
+    a plane-point distance). Returns a LineScanResult batch.
+    """
+    options = options or RansacOptions(thresh=0.005, min_inliers=12)
+    pts, pts_mask, _ = _linescan_points(
+        camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh
+    )
+    rr = ransac_plane(pts, options, mask=pts_mask)
+    return ls.LineScanResult(
+        plane=rr.model,
+        covariance=pts.new_zeros(pts.shape[:1] + (4, 4)),
+        homography=ls.build_plane_homography(rr.model),
+        rms_error=planefit.plane_rms(rr.model, pts, rr.inlier_mask),
+        inlier_count=rr.inlier_count,
+        ok=rr.success & (pts_mask.sum(dim=-1) >= 3),
+    )

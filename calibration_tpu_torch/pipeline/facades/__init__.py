@@ -1,4 +1,4 @@
-from . import extrinsics, handeye, intrinsics
+from . import extrinsics, handeye, intrinsics, linescan
 from .extrinsics import (
     MultiCameraCalibrationFacade,
     MultiCameraCalibrationRunResult,
@@ -28,4 +28,9 @@ from .intrinsics import (
     collect_planar_views,
     load_calibration_config,
     print_calibration_summary,
+)
+from .linescan import (
+    LinescanCalibrationFacade,
+    LinescanCalibrationOptions,
+    LineScanViewData,
 )

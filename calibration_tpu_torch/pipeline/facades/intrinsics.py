@@ -10,9 +10,10 @@ The facade works on one explicit torch device. ``calibrate`` runs one
 sensor (a B = 1 solve); ``calibrate_many`` runs a fleet: ONE batched RANSAC
 prefilter over every real view of every sensor that shares a point bucket,
 then one ``intrinsics_facade_batch`` per (shape, bounds, model) group and
-one host transfer per group. Only the pinhole + Brown-Conrady model is
-ported: another model name gives that sensor an exception, as every
-per-sensor failure does.
+one host transfer per group. ``CameraConfig.model`` picks the registry
+model (pinhole or Scheimpflug); an unknown name gives that sensor an
+exception, as every per-sensor failure does. The fleet's QA recheck is the
+pinhole model's, as in the reference: a Scheimpflug sensor gets none.
 """
 
 from __future__ import annotations
@@ -343,7 +344,7 @@ class PlanarIntrinsicCalibrationFacade:
             good = good & self._tensor(p.view_valid, torch.bool)
             init_poses = torch.where(good[:, None, None], init_poses, safe)
             refine = optimize_intrinsics(
-                obj, uv, init_intr, init_poses, mask=view_mask,
+                obj, uv, init_intr, init_poses, mask=view_mask, model=model,
                 opts=cfg.options.optim_options, view_valid=self._tensor(p.view_valid),
             )
             # trim bucketing padding from per-view outputs
@@ -416,7 +417,7 @@ class PlanarIntrinsicCalibrationFacade:
             stack = lambda field: self._tensor(np.stack([getattr(prepared[i], field) for i in idxs]))
             seed_d, pose_ok_d, refine_d, rms_chk_d = intrinsics_facade_batch(
                 stack("obj"), stack("uv"), mask=stack("mask"), view_valid=stack("view_valid"),
-                opts=opts, bounds=bounds, zero_skew=zero_skew, model_name=model_name,
+                opts=opts, bounds=bounds, zero_skew=zero_skew, model_name=model.name,
             )
             lm_d, intr_d, poses_d, view_err_d, cov_d, cov_ok_d = refine_d
             # ONE host transfer for the whole group; the ambient covariance,
@@ -459,10 +460,11 @@ class PlanarIntrinsicCalibrationFacade:
                     c_se3_t=poses_b[j][: p.v_real],
                     view_errors=view_err_b[j][: p.v_real],
                 )
-                out.view_rms_check = rms_chk_b[j][: p.v_real]
-                valid = np.asarray(p.view_valid[: p.v_real], bool)
-                delta = np.abs(out.view_rms_check[valid] - refine.view_errors[valid])
-                out.rms_check_warnings = int(np.sum(delta > 5e-3))
+                if model.qa_recheck:
+                    out.view_rms_check = rms_chk_b[j][: p.v_real]
+                    valid = np.asarray(p.view_valid[: p.v_real], bool)
+                    delta = np.abs(out.view_rms_check[valid] - refine.view_errors[valid])
+                    out.rms_check_warnings = int(np.sum(delta > 5e-3))
                 if not core.success:
                     print(_REFINE_FALLBACK_MSG, file=sys.stderr)
                     refine.camera = _linear_fallback_camera(kmtx_b[j], zero_skew, model.param_count)

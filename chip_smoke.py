@@ -63,7 +63,7 @@
    max_iterations 50, covariance off, intrinsics fixed at the truth, the
    perturbed g0 and b0 seeds) through ``bundle_batch`` on the card: every
    rig converged, g_se3_c within BUNDLE_TOL of the truth, the linearization
-   histogram, the first call and the median of BUNDLE_WARM_CALLS warm calls
+   histogram, the first call and the median of WARM_CALLS warm calls
    in rigs/s, card vs CPU on 8 rigs (cost within 1e-7 relative, the same
    iterations and termination).
 12. Drives the four-stage bundle_pipeline app (``--device cuda``:
@@ -78,7 +78,32 @@
    report bounds with the bundle section, without it, and with DLT seeds
    (the staged path); then the homography app on the card (DLT and RANSAC
    input) against the CPU app.
-13. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+13. Solves row 5L (the JAX package's line-scan set: B = 1024 rigs, 6
+   views of a 5x7 grid at 0.03 m, 40 laser pixels, 0.1 px, seed 23)
+   through ``linescan_batch`` on the card: every rig ``ok``, the plane
+   normal within LINESCAN_TOL_DEG of the truth, the first call and the
+   median of WARM_CALLS warm calls in rigs/s, card vs CPU planes within
+   1e-9 on 32 rigs.
+14. Rows 5R and 5S (B = 256, 20% of the laser pixels replaced by junk,
+   seeds 31 and 37; 5S through the Scheimpflug camera, tau = (0.06,
+   -0.04)) through ``linescan_ransac_batch`` (256 hypotheses, 4 mm): the
+   same checks, RANSAC rounds on the card, card vs CPU on 8 rigs with the
+   same inlier counts (both draw their noise on the CPU); for 5S also the
+   rate relative to the same set through the pinhole camera.
+15. Rows 2S and 2T (the bench.py set through a tilted sensor, tau =
+   (0.05, -0.04) with covariance, and (0.09, -0.07) without; p1, p2
+   pinned at 0) through ``intrinsics_batch`` with the Scheimpflug model
+   on the card (phased, forward-mode Jacobians): every lane converged,
+   bench_all.py's tilt gates (median < 0.006, p95 < 0.015, max < 0.03
+   rad), the mean view RMS at the 0.2 px noise, covariance finite (2S),
+   the linearization histogram, first call and warm median, card vs CPU
+   on 8 lanes (cost within 1e-7 relative, the same iterations and
+   termination).
+16. Drives the linescan_calibration app (``--device cuda``) on the
+   committed example, a RANSAC variant of it and a Scheimpflug input:
+   exit 0 and the CPU app's artifact within the report bounds. No new
+   phase launches K1 (checked).
+17. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
    time of the bare launcher captured in a CUDA graph (L2-warm on one input
    set, L2-cold over rotating sets), the kernel's duration as
    torch.profiler reads it, the wrapper's host time per call, the bound and
@@ -117,14 +142,15 @@ import torch
 
 from calibration_tpu_torch import native
 from calibration_tpu_torch.apps import bundle_pipeline, homography as homography_app
-from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
+from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, linescan_calibration, planar_intrinsics
 from calibration_tpu_torch.kernels import _build
-from calibration_tpu_torch.models import pinhole
+from calibration_tpu_torch.models import pinhole, scheimpflug
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_batch, handeye_batch, homography_batch
-from calibration_tpu_torch.parallel import intrinsics_facade_batch
+from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
+from calibration_tpu_torch.parallel import linescan_ransac_batch
 from calibration_tpu_torch.pipeline import loaders, reports, stages
 from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
@@ -181,13 +207,38 @@ BUNDLE_PIPE_TOL_M = 0.0017
 BUNDLE_PIPE_TOL_DEG = 0.14
 BUNDLE_RIGS = 128  # config 5's batch
 BUNDLE_PARITY_RIGS = 8
-BUNDLE_WARM_CALLS = 7
 BUNDLE_OPTS = BundleOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
 # g_se3_c vs the truth on every lane of config 5 (0.2 px noise, intrinsics
 # fixed at the truth): about 1.3x the JAX reference's own worst lane (CPU,
 # f64; tools/handeye_pose_reference.py --bundle), 0.253 mm / 0.0225 deg
 BUNDLE_TOL_M = 0.00033
 BUNDLE_TOL_DEG = 0.029
+PINHOLE_NAME = "pinhole_brown_conrady"
+SCHEIM_NAME = "scheimpflug_pinhole_brown_conrady"
+LINESCAN_RIGS = 1024  # row 5L's batch
+LINESCAN_PARITY_RIGS = 32
+LINESCAN_RANSAC_RIGS = 256  # rows 5R and 5S
+LINESCAN_RANSAC_PARITY_RIGS = 8
+LINESCAN_RANSAC_OPTS = dict(max_iters=256, thresh=0.004, min_inliers=20)  # bench_all.py's, thresh in metres
+LINESCAN_TILT = (0.06, -0.04)  # row 5S's sensor tilt
+LINESCAN_SEEDS = {"5L": 23, "5R": 31, "5S": 37}
+# the worst plane-normal angle against the truth on every rig of each row:
+# about 1.3x the JAX reference's own worst rig (CPU, f64, the same sets;
+# tools/linescan_scheimpflug_reference.py), 0.654 / 0.647 / 0.722 deg
+LINESCAN_TOL_DEG = {"5L": 0.85, "5R": 0.85, "5S": 0.94}
+LINESCAN_PLANE_PARITY = 1e-9  # card vs CPU planes
+SCHEIM_RIGS = 256  # rows 2S and 2T
+SCHEIM_PARITY_RIGS = 8
+# row: (tilt, (OptimOptions fields, further IntrinsicsOptimOptions fields)),
+# as bench_all.py runs 2S (covariance on) and 2T (p1, p2 pinned at 0)
+SCHEIM_ROWS = {
+    "2S": ((0.05, -0.04), (dict(max_iterations=60, compute_covariance=True), dict(fixed_distortion_indices=(2, 3)))),
+    "2T": ((0.09, -0.07), (dict(max_iterations=60, compute_covariance=False),
+                           dict(fixed_distortion_indices=(2, 3), fixed_distortion_values=(0.0, 0.0)))),
+}
+TILT_GATES = (0.006, 0.015, 0.03)  # bench_all.py's: median, p95 and max of |tau - truth|, rad
+SCHEIM_RMS_PX = (0.15, 0.25)  # mean view RMS at the injected 0.2 px
+WARM_CALLS = 7  # warm calls per timed cell (the median is reported)
 
 
 class SmokeFailure(RuntimeError):
@@ -490,13 +541,7 @@ def make_problems(batch, views=10, rows=8, cols=11, noise=0.2, seed=7):
     obj = np.stack([xs.ravel() * 0.03, ys.ravel() * 0.03], -1)
     obj = obj - obj.mean(0)
     intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.15, 0.05, 0.0, 1e-4, -2e-4])
-    ang = 2 * np.pi * np.arange(views)[None, :] / views + 0.05 * np.arange(batch)[:, None]
-    w = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.1 * np.sin(2 * ang)], axis=-1)
-    t = np.stack([0.06 * np.cos(ang), 0.06 * np.sin(ang), 0.9 + 0.08 * np.sin(ang)], axis=-1)
-    poses = np.zeros((batch, views, 4, 4))
-    poses[..., :3, :3] = _exp_so3(w)
-    poses[..., :3, 3] = t
-    poses[..., 3, 3] = 1.0
+    poses = bench_poses(batch, views)
     obj3 = np.concatenate([obj, np.zeros((n, 1))], -1)
     pts_c = np.einsum("bvij,nj->bvni", poses[:, :, :3, :3], obj3) + poses[:, :, None, :3, 3]
     uv = pinhole.project(torch.as_tensor(intr), torch.as_tensor(pts_c)).numpy()
@@ -600,6 +645,93 @@ def bundle_problems(batch, num_obs=20, rows=8, cols=11, noise=0.2, seed=19):
             out[key].append(val)
     return dict(obj=np.tile(obj[None, None], (batch, num_obs, 1, 1)), intr=intr,
                 **{k: np.stack(v) for k, v in out.items()})
+
+
+def _bench_circle_views(num, dist, tilt, phase):
+    """The JAX package's benchmarks/problems.py::circle_views."""
+    a = 2 * np.pi * np.arange(num) / num + phase
+    return np.stack([
+        _pose([tilt * np.cos(x), tilt * np.sin(x), 0.1 * np.sin(2 * x)],
+              [0.06 * np.cos(x), 0.06 * np.sin(x), dist + 0.08 * np.sin(x)])
+        for x in a
+    ])
+
+
+def linescan_problems(batch, views=6, rows=5, cols=7, n_laser=40, noise=0.1, seed=23, tilt_tau=None):
+    """The JAX package's line-scan benchmark set (its
+    benchmarks/problems.py::linescan_problems, bench_all.py rows 5L, 5R
+    and 5S): B rigs of a camera and a rigidly mounted laser plane, a
+    moving 5x7 target at 0.03 m, the laser pixels the projected
+    intersection of the two planes, 0.1 px noise; through the Scheimpflug
+    model when ``tilt_tau`` is given (then the camera has 12 parameters).
+    Projected through the port's models on the CPU in float64. Returns
+    (camera (B, pc), obj (B, V, N, 2), target uv (B, V, N, 2), laser uv
+    (B, V, L, 2), the true plane (B, 4) with d >= 0)."""
+    rng = np.random.default_rng(seed)
+    obj = _grid(rows, cols, 0.03)
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    if tilt_tau is not None:
+        intr = np.concatenate([intr, np.asarray(tilt_tau, float)])
+    model = scheimpflug if tilt_tau is not None else pinhole
+    proj = lambda pts: model.project(torch.as_tensor(intr), torch.as_tensor(pts)).numpy()  # noqa: E731
+    n_pl = np.array([0.0, np.sin(0.25), -np.cos(0.25)])
+    obj3 = np.concatenate([obj, np.zeros((obj.shape[0], 1))], -1)
+    tgt_uv = np.zeros((batch, views, obj.shape[0], 2))
+    laser_uv = np.zeros((batch, views, n_laser, 2))
+    planes = np.zeros((batch, 4))
+    s = np.linspace(-0.1, 0.1, n_laser)
+    for b in range(batch):
+        dist = 0.85 + 0.02 * np.sin(0.7 * b)
+        poses = _bench_circle_views(views, dist, 0.25, 0.03 * b)
+        d_pl = -n_pl @ np.array([0.0, 0.0, dist])
+        sgn = 1.0 if d_pl >= 0 else -1.0
+        planes[b] = np.concatenate([sgn * n_pl, [sgn * d_pl]])
+        for v in range(views):
+            rot, t = poses[v, :3, :3], poses[v, :3, 3]
+            tgt_uv[b, v] = proj(obj3 @ rot.T + t) + rng.normal(0, noise, (obj.shape[0], 2))
+            ab = rot.T @ n_pl
+            c = n_pl @ t + d_pl
+            a2 = ab[0] ** 2 + ab[1] ** 2
+            pl_xy = (-c * ab[:2] / a2)[None] + s[:, None] * (np.array([-ab[1], ab[0]]) / np.sqrt(a2))[None]
+            pts3 = np.concatenate([pl_xy, np.zeros((n_laser, 1))], -1) @ rot.T + t
+            laser_uv[b, v] = proj(pts3) + rng.normal(0, noise, (n_laser, 2))
+    return np.tile(intr[None], (batch, 1)), np.tile(obj[None, None], (batch, views, 1, 1)), tgt_uv, laser_uv, planes
+
+
+def with_laser_outliers(laser_uv, seed, share=0.2):
+    """bench_all.py's outlier recipe for rows 5R and 5S: ``share`` of the
+    laser pixels replaced by uniform [0, 640) junk, drawn from seed + 1."""
+    rng = np.random.default_rng(seed + 1)
+    out = rng.random(laser_uv.shape[:-1]) < share
+    junk = rng.uniform(0, 640, laser_uv.shape)
+    return np.where(out[..., None], junk, laser_uv)
+
+
+def bench_poses(batch, views=10):
+    """The bench.py set's camera poses (its make_problems): (B, V, 4, 4)."""
+    ang = 2 * np.pi * np.arange(views)[None, :] / views + 0.05 * np.arange(batch)[:, None]
+    w = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.1 * np.sin(2 * ang)], axis=-1)
+    t = np.stack([0.06 * np.cos(ang), 0.06 * np.sin(ang), 0.9 + 0.08 * np.sin(ang)], axis=-1)
+    poses = np.zeros((batch, views, 4, 4))
+    poses[..., :3, :3] = _exp_so3(w)
+    poses[..., :3, 3] = t
+    poses[..., 3, 3] = 1.0
+    return poses
+
+
+def scheimpflug_problems(batch, tilt, seed=7, views=10, rows=8, cols=11, noise=0.2):
+    """bench_all.py's Scheimpflug intrinsics sets (rows 2S and 2T): the
+    bench.py problems seen through a tilted sensor of ``tilt`` (tau_x,
+    tau_y) with zero tangential distortion, noise drawn from seed + 1.
+    Returns (obj (B, V, N, 2), uv, the true camera (12,))."""
+    obj = _grid(rows, cols, 0.03)
+    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.15, 0.05, 0.0, 0.0, 0.0, *tilt])
+    poses = bench_poses(batch, views)
+    obj3 = np.concatenate([obj, np.zeros((obj.shape[0], 1))], -1)
+    pts_c = np.einsum("bvij,nj->bvni", poses[:, :, :3, :3], obj3) + poses[:, :, None, :3, 3]
+    uv = scheimpflug.project(torch.as_tensor(intr), torch.as_tensor(pts_c)).numpy()
+    uv = uv + np.random.default_rng(seed + 1).normal(0, noise, uv.shape)
+    return np.tile(obj[None, None], (batch, views, 1, 1)), uv, intr
 
 
 STEREO_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
@@ -1093,15 +1225,14 @@ def check_bundle(out, p):
 
 def bundle_phase(dev, card):
     """Config 5 through bundle_batch on the card: checks, the first call
-    and the median of BUNDLE_WARM_CALLS warm calls, card/CPU parity on the
+    and the median of WARM_CALLS warm calls, card/CPU parity on the
     first BUNDLE_PARITY_RIGS rigs on the same schedule. Returns the warm
     median in s."""
     p = bundle_problems(BUNDLE_RIGS)
     run = functools.partial(bundle_batch, *bundle_args(p, dev), opts=BUNDLE_OPTS)
     out, first_s = timed(run, dev)
     check_bundle(out, p)
-    warm = [timed(run, dev)[1] for _ in range(BUNDLE_WARM_CALLS)]
-    med = float(np.median(warm))
+    med, warm = warm_median(run, dev)
     print(f"[smoke] bundle B={BUNDLE_RIGS}: first call {first_s!r} s, warm median {med!r} s = "
           f"{BUNDLE_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
     k = BUNDLE_PARITY_RIGS
@@ -1315,6 +1446,218 @@ def handeye_pipeline_phase(card: str) -> int:
     return launches
 
 
+def plane_angles_deg(plane, truth):
+    """Per-rig angle between fitted and true plane normals, sign-free."""
+    cos = np.abs(np.sum(plane[:, :3] * truth[:, :3], -1))
+    return np.degrees(np.arccos(np.clip(cos, 0.0, 1.0)))
+
+
+def warm_median(run, dev):
+    """The median of WARM_CALLS warm calls in s, and the calls."""
+    warm = [timed(run, dev)[1] for _ in range(WARM_CALLS)]
+    return float(np.median(warm)), warm
+
+
+def check_no_launches(what):
+    check(pr.launches == {"residuals": 0, "rms": 0}, f"{what} launched no K1 kernel (the path has none)")
+
+
+def linescan_phase(dev, card):
+    """Row 5L through linescan_batch on the card: every rig ok, the plane
+    normal within LINESCAN_TOL_DEG of the truth, first call and the median
+    of WARM_CALLS warm calls, card/CPU planes on LINESCAN_PARITY_RIGS rigs.
+    Returns the warm median in s."""
+    p = linescan_problems(LINESCAN_RIGS, seed=LINESCAN_SEEDS["5L"])
+    run = functools.partial(linescan_batch, *(torch.as_tensor(a, device=dev) for a in p[:4]))
+    zero_launches()
+    res, first_s = timed(run, dev)
+    check_no_launches("row 5L")
+    angle = float(plane_angles_deg(res.plane.cpu().numpy(), p[4]).max())
+    print(f"[smoke] line-scan B={LINESCAN_RIGS} (5L): worst plane-normal angle {angle!r} deg, "
+          f"rms_error max {float(res.rms_error.max())!r} m")
+    check(bool(res.ok.all()), f"all {LINESCAN_RIGS} line-scan rigs ok")
+    check(angle <= LINESCAN_TOL_DEG["5L"], f"every 5L plane normal within {LINESCAN_TOL_DEG['5L']} deg of the truth")
+    med, warm = warm_median(run, dev)
+    print(f"[smoke] line-scan B={LINESCAN_RIGS} (5L): first call {first_s!r} s, warm median {med!r} s = "
+          f"{LINESCAN_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
+    k = LINESCAN_PARITY_RIGS
+    cpu = linescan_batch(*(torch.as_tensor(a[:k]) for a in p[:4]))
+    diff = float((res.plane[:k].cpu() - cpu.plane).abs().max())
+    print(f"[smoke] line-scan card vs CPU, first {k} rigs: max |plane diff| {diff!r}")
+    check(diff <= LINESCAN_PLANE_PARITY and torch.equal(res.inlier_count[:k].cpu(), cpu.inlier_count),
+          f"line-scan card/CPU planes within {LINESCAN_PLANE_PARITY}, the same point counts")
+    return med
+
+
+def linescan_ransac_problems(row, tilt):
+    """Row 5R's or 5S's set (``tilt`` None: the pinhole camera) with its
+    junk laser pixels."""
+    seed = LINESCAN_SEEDS[row]
+    camera, obj, tuv, luv, truth = linescan_problems(LINESCAN_RANSAC_RIGS, seed=seed, tilt_tau=tilt)
+    return camera, obj, tuv, with_laser_outliers(luv, seed), truth
+
+
+def linescan_ransac_phase(dev, card, row):
+    """Row 5R (pinhole) or 5S (Scheimpflug, and beside it the same set
+    through the pinhole camera) through linescan_ransac_batch on the card:
+    every rig ok, the plane normal within LINESCAN_TOL_DEG, RANSAC rounds on
+    the card, first call and warm median, card/CPU on
+    LINESCAN_RANSAC_PARITY_RIGS rigs (both draw the same noise: equal
+    inliers, planes within LINESCAN_PLANE_PARITY). Returns the warm median
+    in s."""
+    tilt = LINESCAN_TILT if row == "5S" else None
+    model = SCHEIM_NAME if tilt else PINHOLE_NAME
+    p = linescan_ransac_problems(row, tilt)
+    opts = ransac.RansacOptions(**LINESCAN_RANSAC_OPTS)
+    run = functools.partial(linescan_ransac_batch, *(torch.as_tensor(a, device=dev) for a in p[:4]), options=opts,
+                            model_name=model)
+    zero_launches()
+    rounds = ransac.rounds[dev.type]
+    res, first_s = timed(run, dev)
+    rounds = ransac.rounds[dev.type] - rounds
+    check_no_launches(f"row {row}")
+    angle = float(plane_angles_deg(res.plane.cpu().numpy(), p[4]).max())
+    counts = res.inlier_count.cpu().numpy()
+    print(f"[smoke] line-scan RANSAC B={LINESCAN_RANSAC_RIGS} ({row}, {model}): worst plane-normal angle {angle!r} "
+          f"deg, inliers min {int(counts.min())} / median {float(np.median(counts))} of {p[3].shape[1] * p[3].shape[2]}"
+          f" laser pixels, RANSAC rounds on the card {rounds}")
+    check(bool(res.ok.all()), f"all {LINESCAN_RANSAC_RIGS} {row} rigs ok")
+    check(angle <= LINESCAN_TOL_DEG[row], f"every {row} plane normal within {LINESCAN_TOL_DEG[row]} deg of the truth")
+    check(rounds > 0, f"row {row}'s RANSAC ran on the card")
+    med, warm = warm_median(run, dev)
+    print(f"[smoke] line-scan RANSAC B={LINESCAN_RANSAC_RIGS} ({row}): first call {first_s!r} s, warm median {med!r} "
+          f"s = {LINESCAN_RANSAC_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
+    if tilt is not None:
+        q = linescan_ransac_problems(row, None)
+        pin = functools.partial(linescan_ransac_batch, *(torch.as_tensor(a, device=dev) for a in q[:4]), options=opts)
+        pin()
+        pin_med, _ = warm_median(pin, dev)
+        print(f"[smoke] line-scan RANSAC B={LINESCAN_RANSAC_RIGS} ({row}): the same set through the pinhole camera "
+              f"warm median {pin_med!r} s; Scheimpflug rate / pinhole rate {pin_med / med!r}")
+    k = LINESCAN_RANSAC_PARITY_RIGS
+    cpu = linescan_ransac_batch(*(torch.as_tensor(a[:k]) for a in p[:4]), options=opts, model_name=model)
+    diff = float((res.plane[:k].cpu() - cpu.plane).abs().max())
+    same = torch.equal(res.inlier_count[:k].cpu(), cpu.inlier_count) and torch.equal(res.ok[:k].cpu(), cpu.ok)
+    print(f"[smoke] line-scan RANSAC ({row}) card vs CPU, first {k} rigs: max |plane diff| {diff!r}, "
+          f"same inlier counts and ok {same}")
+    check(diff <= LINESCAN_PLANE_PARITY and same,
+          f"{row} card/CPU: planes within {LINESCAN_PLANE_PARITY}, the same inlier counts and ok")
+    return med
+
+
+def scheimpflug_opts(row):
+    _, (core, extra) = SCHEIM_ROWS[row]
+    return IntrinsicsOptimOptions(core=OptimOptions(**core), **extra)
+
+
+def check_scheimpflug(out, truth, row):
+    """Row 2S's or 2T's gates: every lane converged, bench_all.py's tilt
+    gates, the mean view RMS at the injected noise, covariance finite when
+    on. Returns the tilt deviation's (median, p95, max)."""
+    lm, intr, _, view_errors, cov, cov_ok = out
+    b = intr.shape[0]
+    tilt_dev = np.abs(intr[:, 10:].cpu().numpy() - truth[10:])
+    stats = (float(np.median(tilt_dev)), float(np.percentile(tilt_dev, 95)), float(tilt_dev.max()))
+    rms = float(torch.sqrt(torch.mean(view_errors**2)))
+    print(f"[smoke] Scheimpflug intrinsics B={b} ({row}): tilt deviation median / p95 / max {stats!r} rad, mean "
+          f"view RMS {rms!r} px, linearizations histogram {np.bincount(lm.linearizations.cpu().numpy()).tolist()}, "
+          f"trials max {int(lm.iterations.max())}")
+    check(bool(lm.success.all()), f"all {b} Scheimpflug lanes converged ({row})")
+    check(all(v < g for v, g in zip(stats, TILT_GATES)), f"{row} tilt deviation median / p95 / max under {TILT_GATES}")
+    check(SCHEIM_RMS_PX[0] <= rms <= SCHEIM_RMS_PX[1], f"{row} mean view RMS within {list(SCHEIM_RMS_PX)} px")
+    if scheimpflug_opts(row).core.compute_covariance:
+        check(bool(cov_ok.all()) and bool(torch.isfinite(cov).all()), f"{row}: every covariance finite")
+    return stats
+
+
+def scheimpflug_phase(dev, card, row):
+    """Row 2S or 2T through intrinsics_batch with the Scheimpflug model on
+    the card (phased, forward-mode Jacobians): the gates of
+    ``check_scheimpflug``, first call and warm median, card/CPU on
+    SCHEIM_PARITY_RIGS lanes (the same schedule: cost within 1e-7
+    relative, the same iterations and termination). Returns the warm
+    median in s."""
+    tilt, _ = SCHEIM_ROWS[row]
+    obj, uv, truth = scheimpflug_problems(SCHEIM_RIGS, tilt)
+    opts = scheimpflug_opts(row)
+    run = functools.partial(intrinsics_batch, torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev),
+                            opts=opts, model_name=SCHEIM_NAME)
+    zero_launches()
+    (_, out), first_s = timed(run, dev)
+    check_no_launches(f"row {row}")
+    check_scheimpflug(out, truth, row)
+    med, warm = warm_median(run, dev)
+    print(f"[smoke] Scheimpflug intrinsics B={SCHEIM_RIGS} ({row}): first call {first_s!r} s, warm median {med!r} s "
+          f"= {SCHEIM_RIGS / med!r} solves/s on {card} (warm calls {warm!r})")
+    k = SCHEIM_PARITY_RIGS
+    _, cpu = intrinsics_batch(torch.as_tensor(obj[:k]), torch.as_tensor(uv[:k]), opts=opts, model_name=SCHEIM_NAME,
+                              two_phase=SCHEIM_RIGS >= batched.TWO_PHASE_MIN_BATCH)
+    rel = float(((out[0].cost[:k].cpu() - cpu[0].cost).abs() / cpu[0].cost.abs()).max())
+    same = all(torch.equal(getattr(out[0], f)[:k].cpu(), getattr(cpu[0], f)) for f in ("iterations", "termination"))
+    print(f"[smoke] Scheimpflug ({row}) card vs CPU, first {k} lanes: final cost max rel diff {rel!r}, same "
+          f"iterations and termination {same}")
+    check(rel <= COST_PARITY_RTOL and same,
+          f"{row} card/CPU parity: cost within {COST_PARITY_RTOL} relative, the same iterations and termination")
+    return med
+
+
+def linescan_app_inputs(directory, views=6):
+    """The linescan_calibration app's inputs: the committed example, a
+    RANSAC variant of it, and a Scheimpflug input written from row 5S's
+    generator (its first rig, ``views`` views, no junk pixels). Returns
+    {name: path}."""
+    base = json.loads((Path(__file__).resolve().parent / "examples/data/linescan_input.json").read_text())
+    ransac_in = dict(base, plane_fit={"method": "ransac", "ransac": dict(LINESCAN_RANSAC_OPTS, thresh=0.005)})
+    camera, obj, tuv, luv, _ = linescan_problems(1, views=views, seed=LINESCAN_SEEDS["5S"], tilt_tau=LINESCAN_TILT)
+    k = camera[0]
+    scheim_in = {
+        "camera": {"kmtx": dict(zip(("fx", "fy", "cx", "cy", "skew"), k[:5].tolist())),
+                   "distortion": {"coeffs": k[5:10].tolist()}, "model": "scheimpflug",
+                   "tilt": {"taux": float(k[10]), "tauy": float(k[11])}},
+        "views": [{"target_view": [{"object_xy": o.tolist(), "image_uv": u.tolist()} for o, u in zip(obj[0, v], tuv[0, v])],
+                   "laser_uv": luv[0, v].tolist()} for v in range(views)],
+    }
+    paths = {}
+    for name, payload in (("example", base), ("ransac", ransac_in), ("scheimpflug", scheim_in)):
+        paths[name] = Path(directory) / f"linescan_{name}.json"
+        paths[name].write_text(json.dumps(payload))
+    return paths
+
+
+def run_linescan_app(input_path, out, device):
+    """One linescan_calibration call: (artifact JSON, wall s)."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        t0 = time.perf_counter()
+        rc = linescan_calibration.main(["--input", str(input_path), "--output", str(out), "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        print(log.getvalue()[-4000:])
+    check(rc == 0, f"the linescan_calibration app exits 0 on {device} ({Path(input_path).name})")
+    return json.loads(Path(out).read_text()), wall
+
+
+def linescan_app_phase(card, device="cuda"):
+    """The linescan_calibration app on ``device`` on each of
+    ``linescan_app_inputs``: exit 0, no K1 launch, the artifact equal to the
+    CPU app's within the report bounds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_helpers import assert_reports_match
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in linescan_app_inputs(tmp).items():
+            zero_launches()
+            art, wall = run_linescan_app(path, Path(tmp) / f"{name}_{device}.out", device)
+            check_no_launches(f"the linescan app ({name})")
+            cpu, _ = run_linescan_app(path, Path(tmp) / f"{name}_cpu.out", "cpu")
+            assert_reports_match(cpu, art)
+            print(f"[smoke] linescan app ({name}) on {card}: {wall!r} s, plane n {art['plane']['n']!r} d "
+                  f"{art['plane']['d']!r} ({art['plane']['method']}, {art['plane']['inliers']} inliers); the CPU "
+                  f"app's artifact within the report bounds")
+
+
 def zero_launches() -> None:
     for mode in pr.launches:
         pr.launches[mode] = 0
@@ -1443,6 +1786,12 @@ def main() -> int:
     handeye_phase(dev, card)
     bundle_phase(dev, card)
     rms_launches += handeye_pipeline_phase(card)
+    linescan_phase(dev, card)
+    linescan_ransac_phase(dev, card, "5R")
+    linescan_ransac_phase(dev, card, "5S")
+    scheimpflug_phase(dev, card, "2S")
+    scheimpflug_phase(dev, card, "2T")
+    linescan_app_phase(card)
     print(f"[smoke] end-to-end phases done {time.perf_counter() - start!r} s after the start")
 
     # last, so that the profiler's device tracing (CUPTI) is off during the

@@ -13,6 +13,7 @@ LM report strings equal up to their printed numbers.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -92,10 +93,26 @@ def test_app_refuses_a_missing_card(monkeypatch, capsys):
     assert err[-1].startswith("Calibration failed: ") and "cuda" in err[-1]
 
 
+@pytest.fixture(scope="module")
+def jax_codec():
+    """The JAX package's codec library. That package builds it in place in
+    its own directory with no temporary name, so on a fresh checkout another
+    test worker may be writing the file while this one loads it: the load
+    fails and the package remembers the failure for the rest of the process.
+    Such a failure is forgotten and the load retried, a bounded number of
+    times, until the other worker's build is complete."""
+    for _ in range(60):
+        if jnative.get_lib() is not None:
+            return jnative
+        jnative._build_failed = False
+        time.sleep(1.0)
+    pytest.fail("the JAX package's native codec did not load")
+
+
 @pytest.mark.parametrize("path", FEATURES)
-def test_codec_matches_jax(path):
+def test_codec_matches_jax(jax_codec, path):
     assert tnative.available()
-    want, got = jnative.load_detections_packed(path), tnative.load_detections_packed(path)
+    want, got = jax_codec.load_detections_packed(path), tnative.load_detections_packed(path)
     assert got._fields == want._fields
     for name in want._fields:
         w, g = getattr(want, name), getattr(got, name)

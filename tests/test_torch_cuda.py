@@ -4,9 +4,11 @@ on the CPU, the batched RANSAC prefilter on the card, the
 planar_intrinsics app on the card against the app on the CPU, the
 extrinsics batch on the card against the CPU, the
 intrinsic_extrinsic_pipeline app on the card against the app on the CPU,
-and the dense LM's users (homography_batch, handeye_batch, bundle_batch,
+the dense LM's users (homography_batch, handeye_batch, bundle_batch,
 the dense intrinsics solver, the homography and the four-stage
-bundle_pipeline apps) on the card against the CPU.
+bundle_pipeline apps) on the card against the CPU, and the line-scan slice
+(linescan_batch, linescan_ransac_batch, the linescan_calibration app) and
+the Scheimpflug intrinsics_batch on the card against the CPU.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -21,14 +23,15 @@ import torch
 
 import chip_smoke
 from calibration_tpu_torch.apps import bundle_pipeline, homography as homography_app
-from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, planar_intrinsics
+from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, linescan_calibration, planar_intrinsics
 from calibration_tpu_torch.models import pinhole
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac, se3
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
 from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
-from calibration_tpu_torch.parallel import intrinsics_facade_batch
+from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
+from calibration_tpu_torch.parallel import linescan_ransac_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -337,3 +340,71 @@ def test_bundle_batch_on_card_matches_cpu(cuda_device, two_phase, covariance):
     assert float((gpu[2].cpu() - cpu[2]).abs().max()) <= 1e-9
     scale = cpu[4].abs().amax(dim=(-2, -1)).clamp(min=1e-300)
     assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("model", [chip_smoke.PINHOLE_NAME, chip_smoke.SCHEIM_NAME])
+def test_linescan_batch_on_card_matches_cpu(cuda_device, model):
+    """16 rigs of row 5L's set (or row 5S's camera): planes, homographies and
+    RMS within 1e-9, the same point counts and ok; no K1 launch."""
+    tilt = chip_smoke.LINESCAN_TILT if model == chip_smoke.SCHEIM_NAME else None
+    p = chip_smoke.linescan_problems(16, tilt_tau=tilt)
+    before = dict(pr.launches)
+    gpu = linescan_batch(*(torch.as_tensor(a, device=cuda_device) for a in p[:4]), model_name=model)
+    cpu = linescan_batch(*(torch.as_tensor(a) for a in p[:4]), model_name=model)
+    assert pr.launches == before and bool(gpu.ok.all())
+    for name in ("plane", "homography", "rms_error"):
+        assert float((getattr(gpu, name).cpu() - getattr(cpu, name)).abs().max()) <= 1e-9, name
+    assert torch.equal(gpu.inlier_count.cpu(), cpu.inlier_count) and torch.equal(gpu.ok.cpu(), cpu.ok)
+
+
+@pytest.mark.parametrize("row", ["5R", "5S"])
+def test_linescan_ransac_batch_on_card_matches_cpu(cuda_device, row):
+    """16 rigs of row 5R's or 5S's set with their junk pixels: the card and
+    the CPU draw the same noise, so inlier counts, ok and (within 1e-9)
+    planes agree lane for lane; the rounds ran on the card."""
+    tilt = chip_smoke.LINESCAN_TILT if row == "5S" else None
+    model = chip_smoke.SCHEIM_NAME if tilt else chip_smoke.PINHOLE_NAME
+    camera, obj, tuv, luv, _ = chip_smoke.linescan_ransac_problems(row, tilt)
+    args = [a[:16] for a in (camera, obj, tuv, luv)]
+    opts = ransac.RansacOptions(**chip_smoke.LINESCAN_RANSAC_OPTS)
+    rounds = ransac.rounds["cuda"]
+    gpu = linescan_ransac_batch(*(torch.as_tensor(a, device=cuda_device) for a in args), options=opts,
+                                model_name=model)
+    assert ransac.rounds["cuda"] > rounds
+    cpu = linescan_ransac_batch(*(torch.as_tensor(a) for a in args), options=opts, model_name=model)
+    assert bool(gpu.ok.all())
+    assert torch.equal(gpu.inlier_count.cpu(), cpu.inlier_count) and torch.equal(gpu.ok.cpu(), cpu.ok)
+    assert float((gpu.plane.cpu() - cpu.plane).abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("row", ["2S", "2T"])
+def test_scheimpflug_intrinsics_batch_on_card_matches_cpu(cuda_device, row):
+    """8 lanes of row 2S's (covariance on) or 2T's set, phased: the same
+    counters, cost 1e-7 relative, covariance 1e-6 of its largest entry; no
+    K1 launch."""
+    tilt, _ = chip_smoke.SCHEIM_ROWS[row]
+    obj, uv, _ = chip_smoke.scheimpflug_problems(8, tilt)
+    opts = chip_smoke.scheimpflug_opts(row)
+    before = dict(pr.launches)
+    _, gpu = intrinsics_batch(torch.as_tensor(obj, device=cuda_device), torch.as_tensor(uv, device=cuda_device),
+                              opts=opts, model_name=chip_smoke.SCHEIM_NAME, two_phase=True)
+    _, cpu = intrinsics_batch(torch.as_tensor(obj), torch.as_tensor(uv), opts=opts,
+                              model_name=chip_smoke.SCHEIM_NAME, two_phase=True)
+    assert pr.launches == before and bool(gpu[0].success.all())
+    _lm_equal(gpu[0], cpu[0])
+    if opts.core.compute_covariance:
+        scale = cpu[4].abs().amax(dim=(-2, -1))
+        assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+def test_linescan_app_on_card_matches_cpu(cuda_device, tmp_path):
+    """The linescan_calibration app with --device cuda on the committed
+    example, its RANSAC variant and a Scheimpflug input: exit 0 and the
+    --device cpu artifact within the report bounds."""
+    for name, path in chip_smoke.linescan_app_inputs(tmp_path).items():
+        arts = []
+        for device in ("cuda", "cpu"):
+            out = tmp_path / f"{name}_{device}.json"
+            assert linescan_calibration.main(["--input", str(path), "--output", str(out), "--device", device]) == 0
+            arts.append(json.loads(out.read_text()))
+        assert_reports_match(arts[1], arts[0])

@@ -132,20 +132,22 @@ def test_calibrate_matches_jax(runs):
 
 
 def test_other_models_fail_per_sensor(runs):
-    """Only the pinhole model is ported: another model name fails that
-    sensor alone, with a clear message, and never runs another path."""
+    """A model name the registry does not know fails that sensor alone,
+    with the reference's message, and never runs another path. (Pinhole and
+    Scheimpflug are the registry's models: tests/test_torch_scheimpflug.py
+    holds the Scheimpflug facade to JAX's.)"""
     payloads = _payloads()
     cfg = tjsonio.from_jsonable(_config(True), tf.IntrinsicCalibrationConfig)
     cfg.cameras = cfg.cameras[:2]
-    cfg.cameras[1].model = "scheimpflug_pinhole_brown_conrady"
+    cfg.cameras[1].model = "fisheye"
     facade = tf.PlanarIntrinsicCalibrationFacade("cpu")
     jobs = [(cam, tjsonio.from_jsonable(payloads[cam.camera_id], TDetections)) for cam in cfg.cameras]
     ok, bad = facade.calibrate_many(cfg, jobs)
-    assert isinstance(bad, NotImplementedError) and "not ported yet" in str(bad)
+    assert isinstance(bad, KeyError) and "Unknown camera model 'fisheye'" in str(bad)
     (_, _), (t_many, _) = runs[True]
     # s0 solves alone here and beside s2 there: the same lane up to rounding
     np.testing.assert_allclose(ok.refine_result.camera, t_many[0].refine_result.camera, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(KeyError, match="Unknown camera model"):
         facade.calibrate(cfg, *jobs[1])
 
 

@@ -2,9 +2,11 @@
 parameters, by name and in order, so a call written for the reference
 binds every argument to the same parameter in the port. Parameters only
 the port has come after the reference's and are keyword-only. A value the
-port does not honour yet (a model other than pinhole, a precision other
-than "f64", a device mesh, an unknown ``jac_mode``) raises
-``NotImplementedError`` ("not ported yet") before any work.
+port does not honour yet (a camera model a path does not take, a precision
+other than "f64", a device mesh, an unknown ``jac_mode``) raises
+``NotImplementedError`` ("not ported yet") before any work. The intrinsics
+and line-scan paths take the Scheimpflug model; the extrinsics and bundle
+solvers do not yet.
 
 The port's ``*_device`` functions keep a leading batch axis where the
 reference's take one problem: only names and order are compared."""
@@ -16,7 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from calibration_tpu.models import distortion as jdist
+from calibration_tpu.models import pinhole as jpin
+from calibration_tpu.models import scheimpflug as jsch
 from calibration_tpu.models.registry import SCHEIMPFLUG
+from calibration_tpu.ops import linescan as jls
+from calibration_tpu.ops import planefit as jpf
+from calibration_tpu.ops import ransac as jransac
 from calibration_tpu.optim import bundle as jbundle
 from calibration_tpu.optim import extrinsics as jext
 from calibration_tpu.optim import handeye as jhe
@@ -24,6 +32,13 @@ from calibration_tpu.optim import homography as jhom
 from calibration_tpu.optim import intrinsics as jintr
 from calibration_tpu.optim import lm as jlm
 from calibration_tpu.parallel import batched as jbatched
+from calibration_tpu.pipeline.facades import linescan as jlsf
+from calibration_tpu_torch.models import distortion as tdist
+from calibration_tpu_torch.models import pinhole as tpin
+from calibration_tpu_torch.models import scheimpflug as tsch
+from calibration_tpu_torch.ops import linescan as tls
+from calibration_tpu_torch.ops import planefit as tpf
+from calibration_tpu_torch.ops import ransac as transac
 from calibration_tpu_torch.optim import bundle as tbundle
 from calibration_tpu_torch.optim import extrinsics as text
 from calibration_tpu_torch.optim import handeye as the
@@ -31,6 +46,7 @@ from calibration_tpu_torch.optim import homography as thom
 from calibration_tpu_torch.optim import intrinsics as tintr
 from calibration_tpu_torch.optim import lm as tlm
 from calibration_tpu_torch.parallel import batched as tbatched
+from calibration_tpu_torch.pipeline.facades import linescan as tlsf
 
 PAIRS = {
     "optimize_intrinsics_device": (tintr, jintr),
@@ -55,14 +71,49 @@ PAIRS = {
     "handeye_batch": (tbatched, jbatched),
     "reprojection_rms_batch": (tbatched, jbatched),
     "bundle_batch": (tbatched, jbatched),
+    "linescan_batch": (tbatched, jbatched),
+    "linescan_ransac_batch": (tbatched, jbatched),
+    "ransac_plane": (transac, jransac),
+    "fit_plane_svd": (tpf, jpf),
+    "fit_plane_3pt": (tpf, jpf),
+    "plane_point_distance": (tpf, jpf),
+    "plane_rms": (tpf, jpf),
+    "build_plane_homography": (tls, jls),
+    "points_from_view": (tls, jls),
+    "calibrate_laser_plane": (tls, jls),
+    "undistort": (tdist, jdist),
+    "pinhole.pack": (tpin, jpin),
+    "pinhole.unproject": (tpin, jpin),
+    "pinhole.project_normalized": (tpin, jpin),
+    "pinhole.apply_intrinsics": (tpin, jpin),
+    "pinhole.remove_intrinsics": (tpin, jpin),
+    "pinhole.apply_linear_intrinsics": (tpin, jpin),
+    "pinhole.remove_linear_intrinsics": (tpin, jpin),
+    "scheimpflug.pack": (tsch, jsch),
+    "scheimpflug.project": (tsch, jsch),
+    "scheimpflug.unproject": (tsch, jsch),
+    "scheimpflug.unproject_normalized": (tsch, jsch),
+    "scheimpflug.plane_point_to_ray": (tsch, jsch),
+    "scheimpflug.apply_intrinsics": (tsch, jsch),
+    "scheimpflug.remove_intrinsics": (tsch, jsch),
+    "LinescanCalibrationFacade.calibrate": (tlsf, jlsf),
 }
+
+
+def _resolve(mod, key):
+    """The object a PAIRS key names: its last dotted part, or for a
+    ``Class.method`` key the method."""
+    parts = key.split(".")
+    if parts[0][0].isupper():
+        return getattr(getattr(mod, parts[0]), parts[1])
+    return getattr(mod, parts[-1])
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_signature_matches_the_reference(name):
     port_mod, jax_mod = PAIRS[name]
-    port = inspect.signature(getattr(port_mod, name)).parameters
-    ref = inspect.signature(getattr(jax_mod, name)).parameters
+    port = inspect.signature(_resolve(port_mod, name)).parameters
+    ref = inspect.signature(_resolve(jax_mod, name)).parameters
     extra = [p for p in port.values() if p.name not in ref]
     assert all(p.kind is p.KEYWORD_ONLY for p in extra), f"port-only parameters must be keyword-only: {extra}"
     shared = [p for p in port.values() if p.name in ref]
@@ -98,24 +149,25 @@ def _mesh():
     return jax.sharding.Mesh(np.array(jax.devices()[:1]), ("b",))
 
 
+def _linescan_args(b=(1,)):
+    return (_z(*b, 10), _z(*b, 2, 5, 2), _z(*b, 2, 5, 2), _z(*b, 2, 4, 2))
+
+
 SCHEIM = SCHEIMPFLUG.name
 UNPORTED = {
-    "intrinsics_device_model": (tintr.optimize_intrinsics_device, _intr_args, {"model": SCHEIMPFLUG}),
     "intrinsics_device_mixed": (tintr.optimize_intrinsics_device, _intr_args, {"precision": "mixed"}),
     "intrinsics_device_mixed_jac": (tintr.optimize_intrinsics_device, _intr_args, {"precision": "mixed_jac"}),
-    "intrinsics_host_model": (tintr.optimize_intrinsics, lambda: _intr_args(()), {"model": SCHEIMPFLUG}),
     "intrinsics_host_mixed": (tintr.optimize_intrinsics, lambda: _intr_args(()), {"precision": "mixed"}),
-    "intrinsics_covariance_model": (tintr.intrinsics_covariance_device, _intr_args, {"model": SCHEIMPFLUG}),
+    "linescan_batch_mesh": (tbatched.linescan_batch, _linescan_args, {"mesh": _mesh()}),
+    "linescan_ransac_batch_mesh": (tbatched.linescan_ransac_batch, _linescan_args, {"mesh": _mesh()}),
     "extrinsics_device_model": (text.optimize_extrinsics_device, _extr_args, {"model": SCHEIMPFLUG}),
     "extrinsics_device_jac_mode": (text.optimize_extrinsics_device, _extr_args, {"jac_mode": "blocked"}),
     "extrinsics_host_model": (text.optimize_extrinsics, lambda: _extr_args(()), {"model": SCHEIMPFLUG}),
     "bundle_device_model": (tbundle.optimize_bundle_device, _bundle_args, {"model": SCHEIMPFLUG}),
     "bundle_device_mixed": (tbundle.optimize_bundle_device, _bundle_args, {"precision": "mixed"}),
     "bundle_host_model": (tbundle.optimize_bundle, lambda: _bundle_args(()), {"model": SCHEIMPFLUG}),
-    "intrinsics_batch_model": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"model_name": SCHEIM}),
     "intrinsics_batch_mixed": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
     "intrinsics_batch_mesh": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
-    "facade_batch_model": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"model_name": SCHEIM}),
     "facade_batch_mixed": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
     "facade_batch_mesh": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
     "extrinsics_batch_model": (tbatched.extrinsics_batch, _extr_args, {"model_name": SCHEIM}),
@@ -135,16 +187,77 @@ def test_unported_values_raise(case):
 
 def test_honoured_reference_values_are_accepted():
     """The reference's own defaults, passed by keyword, change nothing:
-    model PINHOLE (the spec or its name), precision "f64", mesh None, any
-    analytic_jac (the analytic Jacobian equals jacfwd)."""
+    model PINHOLE (the reference's spec, its name, the "pinhole" alias or
+    the port's spec) is taken and gives the port's pinhole spec on every
+    caller's list of models, precision "f64", mesh None, any analytic_jac
+    (the analytic Jacobian equals jacfwd)."""
     from calibration_tpu.models.registry import PINHOLE
+    from calibration_tpu_torch.models import registry as treg
+    from calibration_tpu_torch.optim.core import check_ported
 
     obj = torch.tensor(np.random.default_rng(0).uniform(-1, 1, (2, 8, 2)))
     dst = obj * 1.1 + 0.2
     base = tbatched.homography_batch(obj, dst, two_phase=False)
     same = tbatched.homography_batch(obj, dst, mesh=None, two_phase=False)
     assert torch.equal(base[1], same[1])
-    from calibration_tpu_torch.optim.core import check_ported
+    callers = {"default": {}, "intrinsics": {"models": tintr.MODELS},
+               "linescan": {"models": tbatched.LINESCAN_MODELS}}
+    for kwargs in callers.values():
+        for model in (PINHOLE, PINHOLE.name, "pinhole", tintr.PINHOLE):
+            assert check_ported(model, "f64", None, **kwargs) is treg.PINHOLE
 
-    for model in (PINHOLE, PINHOLE.name, "pinhole", tintr.PINHOLE):
-        check_ported(model, "f64", None)
+
+# the intrinsics solvers take the Scheimpflug model (the reference's spec
+# object or its name); these calls raised "not ported yet" before
+SCHEIMPFLUG_TAKEN = {
+    "intrinsics_device_model": (tintr.optimize_intrinsics_device, {"model": SCHEIMPFLUG}),
+    "intrinsics_host_model": (tintr.optimize_intrinsics, {"model": SCHEIMPFLUG}),
+    "intrinsics_covariance_model": (tintr.intrinsics_covariance_device, {"model": SCHEIMPFLUG}),
+    "intrinsics_batch_model": (tbatched.intrinsics_batch, {"model_name": SCHEIM}),
+    "facade_batch_model": (tbatched.intrinsics_facade_batch, {"model_name": SCHEIM}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEIMPFLUG_TAKEN))
+def test_scheimpflug_is_taken_where_ported(case):
+    """A batch of one camera (4 views of a 4x5 grid through the port's
+    Scheimpflug model, noise-free) solves to the truth's cost on every
+    intrinsics entry point that now takes the model."""
+    fn, kwargs = SCHEIMPFLUG_TAKEN[case]
+    obj, uv, intr12, poses = _scheimpflug_views()
+    opts = tintr.IntrinsicsOptimOptions(core=tintr.OptimOptions(max_iterations=5, compute_covariance=False))
+    if fn is tintr.optimize_intrinsics:
+        out = fn(obj[0], uv[0], intr12[0], poses[0], opts=opts, **kwargs)
+        assert out.camera.shape == (12,) and out.core.final_cost < 1e-16
+    elif fn is tintr.intrinsics_covariance_device:
+        cov, ok = fn(obj, uv, intr12, poses, opts=opts, **kwargs)
+        assert cov.shape == (1, 12 + 28, 12 + 28) and bool(ok.all())
+    elif fn is tintr.optimize_intrinsics_device:
+        out = fn(obj, uv, intr12, poses, opts=opts, **kwargs)
+        assert out[1].shape == (1, 12) and float(out[0].cost[0]) < 1e-16
+    else:
+        out = fn(obj, uv, opts=opts, **kwargs)
+        solve = out[1] if fn is tbatched.intrinsics_batch else out[2]
+        assert solve[1].shape == (1, 12) and bool(torch.isfinite(solve[0].cost).all())
+
+
+def _scheimpflug_views():
+    """(obj, uv, intr (1, 12), poses (1, 4, 4, 4)) of one noise-free camera
+    through the port's Scheimpflug model."""
+    from calibration_tpu_torch.models import scheimpflug
+    from calibration_tpu_torch.ops import se3
+
+    ys, xs = np.meshgrid(np.arange(4), np.arange(5), indexing="ij")
+    grid = np.stack([xs.ravel() * 0.05, ys.ravel() * 0.05], -1) - [0.1, 0.075]
+    ang = 2 * np.pi * np.arange(4) / 4
+    w = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.1 * np.sin(2 * ang)], -1)
+    t = np.stack([0.05 * np.cos(ang), 0.05 * np.sin(ang), np.full(4, 0.8)], -1)
+    poses = torch.eye(4, dtype=torch.float64).repeat(1, 4, 1, 1)
+    poses[0, :, :3, :3] = se3.exp_so3(torch.as_tensor(w))
+    poses[0, :, :3, 3] = torch.as_tensor(t)
+    intr = torch.tensor([[600.0, 610.0, 320.0, 240.0, 0.0, -0.1, 0.03, 0.0, 0.0, 0.0, 0.05, -0.04]],
+                        dtype=torch.float64)
+    pts = torch.cat([torch.as_tensor(grid), torch.zeros(len(grid), 1, dtype=torch.float64)], -1)
+    pc = torch.einsum("vij,nj->vni", poses[0, :, :3, :3], pts) + poses[0, :, None, :3, 3]
+    obj = torch.as_tensor(np.broadcast_to(grid, (1, 4) + grid.shape).copy())
+    return obj, scheimpflug.project(intr[0], pc)[None], intr, poses

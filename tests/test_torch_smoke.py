@@ -1,8 +1,9 @@
 """CPU rehearsal of ``chip_smoke.py``'s app, stereo, pipeline, homography,
-hand-eye, bundle and four-stage pipeline phases, which otherwise run only
-on the card: the same generators at a small size (4 sensors, 4 rigs, 4 or
-64 lanes), the apps and the solves on the CPU, and the phases' own checks,
-so a wrong path, shape or threshold shows here before a chip run.
+hand-eye, bundle, four-stage pipeline, line-scan (5L, 5R, 5S), Scheimpflug
+intrinsics (2S, 2T) and line-scan app phases, which otherwise run only on
+the card: the same generators at a small size (4 sensors, 4 rigs, 4 or 64
+lanes), the apps and the solves on the CPU, and the phases' own checks, so
+a wrong path, shape or threshold shows here before a chip run.
 Also: the script refuses to run without a card, and outside the
 repository. No JAX is imported."""
 
@@ -195,19 +196,93 @@ def test_bundle_phase_checks_pass_on_cpu(monkeypatch):
     back."""
     monkeypatch.setattr(chip_smoke, "BUNDLE_RIGS", 4)
     monkeypatch.setattr(chip_smoke, "BUNDLE_PARITY_RIGS", 2)
-    monkeypatch.setattr(chip_smoke, "BUNDLE_WARM_CALLS", 2)
+    monkeypatch.setattr(chip_smoke, "WARM_CALLS", 2)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     assert chip_smoke.bundle_phase(torch.device("cpu"), "cpu") > 0
 
 
-@pytest.mark.parametrize("which", ["homography", "handeye", "bundle", "handeye_fleet"])
+def _small_cells(monkeypatch):
+    for name, value in (("LINESCAN_RIGS", 4), ("LINESCAN_PARITY_RIGS", 2), ("LINESCAN_RANSAC_RIGS", 4),
+                        ("LINESCAN_RANSAC_PARITY_RIGS", 2), ("SCHEIM_RIGS", 4), ("SCHEIM_PARITY_RIGS", 2),
+                        ("WARM_CALLS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+def test_linescan_phase_checks_pass_on_cpu(monkeypatch):
+    """Row 5L at 4 rigs: every rig ok within the angle bound, no K1
+    launch, the parity on 2 rigs against themselves, the warm median back."""
+    _small_cells(monkeypatch)
+    assert chip_smoke.linescan_phase(torch.device("cpu"), "cpu") > 0
+
+
+@pytest.mark.parametrize("row", ["5R", "5S"])
+def test_linescan_ransac_phase_checks_pass_on_cpu(monkeypatch, row):
+    """Rows 5R and 5S at 4 rigs, the junk pixels in: every rig ok within
+    the angle bound, RANSAC rounds counted on the phase's device."""
+    _small_cells(monkeypatch)
+    assert chip_smoke.linescan_ransac_phase(torch.device("cpu"), "cpu", row) > 0
+
+
+@pytest.mark.parametrize("row", ["2S", "2T"])
+def test_scheimpflug_phase_checks_pass_on_cpu(monkeypatch, row):
+    """Rows 2S and 2T at 4 lanes: every lane converged, the tilt gates,
+    the RMS at the noise, covariance finite (2S), no K1 launch."""
+    _small_cells(monkeypatch)
+    assert chip_smoke.scheimpflug_phase(torch.device("cpu"), "cpu", row) > 0
+
+
+def test_linescan_app_phase_checks_pass_on_cpu():
+    """The app on the example, its RANSAC variant and the Scheimpflug input:
+    exit 0, no K1 launch, the artifact within the report bounds."""
+    chip_smoke.linescan_app_phase("cpu", device="cpu")
+
+
+def test_ransac_draws_do_not_depend_on_the_device():
+    """round_noise draws on the CPU and moves the noise: every device gets
+    the same stream, so card/CPU RANSAC lanes can be held equal."""
+    a = ransac.round_noise(5, 2, (8, 16), torch.device("cpu"))
+    b = ransac.round_noise(5, 2, (8, 16), "cpu")
+    assert torch.equal(a, b) and a.device.type == "cpu"
+
+
+@pytest.mark.parametrize("which", ["homography", "handeye", "bundle", "handeye_fleet", "linescan",
+                                   "linescan_scheimpflug", "linescan_outliers", "scheimpflug"])
 def test_generators_restate_the_benchmark_sets(which):
-    """chip_smoke's config-1, config-4 and config-5 sets and its pipeline
-    fleet equal the JAX package's benchmarks/problems.py and
-    benchmarks/pipeline_fleet.py ones (the fleet with its bundle section).
-    Asked of a fresh interpreter: those modules set torch's default
-    dtype."""
+    """chip_smoke's config-1, config-4 and config-5 sets, its pipeline
+    fleet and its line-scan sets equal the JAX package's
+    benchmarks/problems.py and benchmarks/pipeline_fleet.py ones (the fleet
+    with its bundle section); its junk-pixel recipe and its Scheimpflug
+    intrinsics sets equal bench_all.py's (rows 5R / 5S, 2S / 2T). Asked of
+    a fresh interpreter: those modules set torch's default dtype."""
     code = {
+        "linescan": "want, got = problems.linescan_problems(3, seed=23), chip_smoke.linescan_problems(3, seed=23)\n",
+        "linescan_scheimpflug": (
+            "want = problems.linescan_problems(3, views=4, seed=37, tilt_tau=(0.06, -0.04))\n"
+            "got = chip_smoke.linescan_problems(3, views=4, seed=37, tilt_tau=(0.06, -0.04))\n"
+        ),
+        "linescan_outliers": (
+            "luv = problems.linescan_problems(3, seed=31)[3]\n"
+            "rng = np.random.default_rng(32)\n"
+            "out = rng.random(luv.shape[:-1]) < 0.2\n"
+            "junk = rng.uniform(0, 640, luv.shape)\n"
+            "want, got = [np.where(out[..., None], junk, luv)], [chip_smoke.with_laser_outliers(luv, 31)]\n"
+        ),
+        "scheimpflug": (
+            "import bench, jax.numpy as jnp\n"
+            "from calibration_tpu.models import scheimpflug\n"
+            "from calibration_tpu.ops import se3\n"
+            "want, got = [], []\n"
+            "for tilt in ((0.05, -0.04), (0.09, -0.07)):\n"
+            "    obj, _, poses, intr10 = bench.make_problems(3, seed=7)\n"
+            "    intr10 = np.asarray(intr10).copy()\n"
+            "    intr10[8:10] = 0.0\n"
+            "    intr12 = np.concatenate([intr10, tilt])\n"
+            "    obj3 = jnp.concatenate([jnp.asarray(obj), jnp.zeros(obj.shape[:-1] + (1,))], -1)\n"
+            "    uv = np.asarray(scheimpflug.project(jnp.asarray(intr12), se3.se3_apply(jnp.asarray(poses)[:, :, None], obj3)))\n"
+            "    want += [obj, uv + np.random.default_rng(8).normal(0, 0.2, uv.shape), intr12]\n"
+            "    got += list(chip_smoke.scheimpflug_problems(3, tilt))\n"
+        ),
         "homography": "want, got = problems.homography_problems(5), chip_smoke.homography_problems(5)\n",
         "handeye": "want, got = problems.handeye_problems(3, 7), chip_smoke.handeye_problems(3, 7)\n",
         "bundle": (

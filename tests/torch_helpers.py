@@ -58,8 +58,11 @@ def report_tolerance(path: str):
     pose 1e-6 relative with a 1e-9 absolute floor and its covariance 1e-6
     relative with a 1e-12 absolute floor; the bundle result's cameras and
     poses as the hand-eye pose, its averaged initial target 1e-9 relative
-    with a 1e-12 absolute floor."""
+    with a 1e-12 absolute floor; the line-scan artifact's plane, homography
+    and RMS 1e-9 relative with a 1e-12 absolute floor."""
     leaf = path.rsplit("/", 1)[-1]
+    if path.startswith(("/plane/n[", "/homography[")) or path in ("/plane/d", "/rms_error"):
+        return 1e-9, 1e-12  # the line-scan artifact
     if "initial_guess" in path or "linear_kmtx" in path or "symmetric_rms_px" in path:
         return 1e-9, 0.0
     if "/initial_target[" in path:

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's dense-LM cells, on one CUDA
-card: config1-b8192 (``homography_batch``), config4-b256
-(``handeye_batch``), config5-b128 (``bundle_batch``), handeye-pipeline-64
-(``bundle_pipeline`` without a bundle section) and bundle-pipeline-64
-(``bundle_pipeline`` with it: intrinsics, hand-eye, bundle), each with the
-data of ``chip_smoke.py``.
+"""Where the time goes in the PyTorch port's dense-LM, line-scan and
+Scheimpflug cells, on one CUDA card: config1-b8192 (``homography_batch``),
+config4-b256 (``handeye_batch``), config5-b128 (``bundle_batch``),
+handeye-pipeline-64 (``bundle_pipeline`` without a bundle section),
+bundle-pipeline-64 (``bundle_pipeline`` with it: intrinsics, hand-eye,
+bundle), linescan-b1024 (row 5L, ``linescan_batch``),
+linescan-ransac-b256 and linescan-scheimpflug-b256 (rows 5R and 5S,
+``linescan_ransac_batch``), scheimpflug-b256 and scheimpflug-tilt-b256
+(rows 2S and 2T, ``intrinsics_batch`` with the Scheimpflug model), each
+with the data of ``chip_smoke.py``.
 
-    python3 tools/profile_torch_cells.py [--repeats 5] [--out DIR]
+    python3 tools/profile_torch_cells.py [--repeats 7] [--out DIR] [--cells a,b] [--sweeps a,b]
 
-First the first-phase cap sweeps of the homography batch (caps 2-6) and
-of the bundle batch (caps 2-6 and 12, the reference's): ``repeats`` warm
-calls per cap and in one phase, interleaved in the order A B .. Z Z .. A,
-with the median per cap. Then each cell's warm wall times (host clock,
+First the first-phase cap sweeps: of the homography batch (caps 2-6), of
+the bundle batch (caps 2-6 and 12, the reference's), and of the Scheimpflug
+intrinsics with fixed distortion indices (row 2S's set, caps 6-20) and with
+every coefficient free (2S's set with p1 and p2 free, caps 10-40):
+``repeats`` warm calls per cap and in one phase, interleaved in the order A
+B .. Z Z .. A, with the median per cap. Then the A/B of the Scheimpflug
+per-view Jacobian (rows 2S and 2T): ``lm_schur.view_jacobian_fn``, one
+dual-number pass over the batch repeated pg + 6 times, against the port's
+other forward-mode idiom, a ``torch.func.vmap`` over (B, V) of ``jacfwd``
+(``vmap_jacfwd_view_jacobian_fn`` below), interleaved the same way. Then
+each cell's warm wall times (host clock,
 synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
 share of the profiled wall) and one under cProfile (host functions by
-cumulative time). Prints one line per result, and the profiler and
-cProfile tables into ``--out``. Needs a CUDA device; imports nothing of
-JAX.
+cumulative time). ``--cells`` and ``--sweeps`` pick some by name
+(default all). Prints one line per result, and the profiler and cProfile
+tables into ``--out``. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,8 +51,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import dataclasses  # noqa: E402
+
 import chip_smoke  # noqa: E402
+from calibration_tpu_torch.ops import ransac  # noqa: E402
+from calibration_tpu_torch.optim import lm_schur  # noqa: E402
 from calibration_tpu_torch.parallel import batched, bundle_batch, handeye_batch, homography_batch  # noqa: E402
+from calibration_tpu_torch.parallel import intrinsics_batch, linescan_batch, linescan_ransac_batch  # noqa: E402
 
 
 def synced(fn):
@@ -121,11 +137,57 @@ def cap_sweep(name, fn, attr, caps, repeats):
         print(f"[profile] {name} {label}: median {statistics.median(times[cap])!r} s, all {times[cap]!r}")
 
 
+def vmap_jacfwd_view_jacobian_fn(residual_fn):
+    """``lm_schur.view_jacobian_fn``'s Jacobian by ``torch.func.vmap`` over
+    (B, V) of ``jacfwd`` of one view's retracted residual at zero tangent,
+    the idiom of ``lm.tangent_jacobian``."""
+
+    def jac_fn(xg, quats, trans, *view_data):
+        pg = xg.shape[-1]
+
+        def one(delta, g, q, t, *data):
+            qn, tn = lm_schur._retract_views(q[None, None], t[None, None], delta[None, None, pg:])
+            return residual_fn((g + delta[:pg])[None], qn, tn, *(d[None, None] for d in data))[0, 0]
+
+        dims = (0,) * len(view_data)
+        per_view = torch.func.vmap(torch.func.jacfwd(one), in_dims=(None, None, 0, 0) + dims)
+        lanes = torch.func.vmap(per_view, in_dims=(None, 0, 0, 0) + dims)
+        return lanes(xg.new_zeros(pg + 6), xg, quats, trans, *view_data)
+
+    return jac_fn
+
+
+def jacobian_ab(name, fn, repeats):
+    """Warm walls of ``fn`` with each per-view Jacobian builder swapped in,
+    interleaved A B B A; prints the median per builder and the cost
+    difference between the two results."""
+    builders = {"dual": lm_schur.view_jacobian_fn, "vmap-jacfwd": vmap_jacfwd_view_jacobian_fn}
+    times, costs = {k: [] for k in builders}, {}
+    try:
+        for key, builder in builders.items():
+            lm_schur.view_jacobian_fn = builder
+            costs[key] = fn()[1][0].cost  # first call
+        for order in range(repeats):
+            for key in (builders if order % 2 == 0 else list(builders)[::-1]):
+                lm_schur.view_jacobian_fn = builders[key]
+                times[key].append(synced(fn))
+    finally:
+        lm_schur.view_jacobian_fn = builders["dual"]
+    rel = float(((costs["dual"] - costs["vmap-jacfwd"]).abs() / costs["dual"].abs().clamp(min=1e-300)).max())
+    for key in builders:
+        print(f"[profile] {name} jacobian {key}: median {statistics.median(times[key])!r} s, all {times[key]!r}")
+    print(f"[profile] {name} jacobian: max relative cost difference dual vs vmap-jacfwd {rel!r}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--repeats", type=int, default=7)
     parser.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    parser.add_argument("--cells", default="", help="comma-separated cell names (default all)")
+    parser.add_argument("--sweeps", default="", help="comma-separated sweeps: homography, bundle, "
+                        "scheimpflug-fixed, scheimpflug-free, jacobian (default all)")
     args = parser.parse_args()
+    picked = lambda arg, name: not arg or name in arg.split(",")  # noqa: E731
     if not torch.cuda.is_available():
         print("profile_torch_cells: no CUDA device", file=sys.stderr)
         return 1
@@ -144,10 +206,36 @@ def main() -> int:
 
     bundle = functools.partial(bundle_batch, *chip_smoke.bundle_args(chip_smoke.bundle_problems(chip_smoke.BUNDLE_RIGS),
                                                                       dev), opts=chip_smoke.BUNDLE_OPTS)
+    on_card = lambda arrays: [torch.as_tensor(a, device=dev) for a in arrays]  # noqa: E731
+    line = functools.partial(linescan_batch, *on_card(chip_smoke.linescan_problems(chip_smoke.LINESCAN_RIGS)[:4]))
+    ropts = ransac.RansacOptions(**chip_smoke.LINESCAN_RANSAC_OPTS)
+    line_r = functools.partial(linescan_ransac_batch, *on_card(chip_smoke.linescan_ransac_problems("5R", None)[:4]),
+                               options=ropts)
+    line_s = functools.partial(
+        linescan_ransac_batch, *on_card(chip_smoke.linescan_ransac_problems("5S", chip_smoke.LINESCAN_TILT)[:4]),
+        options=ropts, model_name=chip_smoke.SCHEIM_NAME)
+    scheim = {}
+    for row in ("2S", "2T"):
+        obj, uv, _ = chip_smoke.scheimpflug_problems(chip_smoke.SCHEIM_RIGS, chip_smoke.SCHEIM_ROWS[row][0])
+        scheim[row] = functools.partial(intrinsics_batch, *on_card((obj, uv)), opts=chip_smoke.scheimpflug_opts(row),
+                                        model_name=chip_smoke.SCHEIM_NAME)
+    free = dataclasses.replace(chip_smoke.scheimpflug_opts("2S"), fixed_distortion_indices=())
+    scheim_free = functools.partial(scheim["2S"], opts=free)
 
     # the cap sweeps first, before any profiler has run in this process
-    cap_sweep(f"homography B={chip_smoke.HOMOG_LANES}", homog, "HOMOG_PHASE_CAP", range(2, 7), args.repeats)
-    cap_sweep(f"bundle B={chip_smoke.BUNDLE_RIGS}", bundle, "BUNDLE_PHASE_CAP", (2, 3, 4, 5, 6, 12), args.repeats)
+    for name, label, fn, attr, caps in (
+        ("homography", f"homography B={chip_smoke.HOMOG_LANES}", homog, "HOMOG_PHASE_CAP", range(2, 7)),
+        ("bundle", f"bundle B={chip_smoke.BUNDLE_RIGS}", bundle, "BUNDLE_PHASE_CAP", (2, 3, 4, 5, 6, 12)),
+        ("scheimpflug-fixed", f"Scheimpflug 2S (p1, p2 fixed) B={chip_smoke.SCHEIM_RIGS}", scheim["2S"],
+         "SCHEIMPFLUG_PHASE_CAP_FIXED", (6, 8, 10, 12, 15, 20)),
+        ("scheimpflug-free", f"Scheimpflug 2S set, every coefficient free, B={chip_smoke.SCHEIM_RIGS}", scheim_free,
+         "SCHEIMPFLUG_PHASE_CAP_FREE", (10, 15, 20, 30, 40)),
+    ):
+        if picked(args.sweeps, name):
+            cap_sweep(label, fn, attr, caps, args.repeats)
+    if picked(args.sweeps, "jacobian"):
+        for row in ("2S", "2T"):
+            jacobian_ab(f"Scheimpflug {row} B={chip_smoke.SCHEIM_RIGS}", scheim[row], args.repeats)
 
     with tempfile.TemporaryDirectory() as tmp:
         fleet = chip_smoke.write_handeye_fleet(Path(tmp), chip_smoke.HE_PIPELINE_RIGS)
@@ -161,9 +249,13 @@ def main() -> int:
                                            "--device", "cuda"])
             assert rc == 0
 
-        cells = (("config1-b8192", homog), ("config4-b256", he), ("config5-b128", bundle),
-                 ("handeye-pipeline-64", functools.partial(pipeline, handeye_input)),
-                 ("bundle-pipeline-64", functools.partial(pipeline, fleet["input_path"])))
+        cells = [(name, fn) for name, fn in (
+            ("config1-b8192", homog), ("config4-b256", he), ("config5-b128", bundle),
+            ("handeye-pipeline-64", functools.partial(pipeline, handeye_input)),
+            ("bundle-pipeline-64", functools.partial(pipeline, fleet["input_path"])),
+            ("linescan-b1024", line), ("linescan-ransac-b256", line_r), ("linescan-scheimpflug-b256", line_s),
+            ("scheimpflug-b256", scheim["2S"]), ("scheimpflug-tilt-b256", scheim["2T"]),
+        ) if picked(args.cells, name)]
         # every timed call before the first profiler (it slows later launches)
         for name, fn in cells:
             warm_walls(name, fn, args.repeats, card)
