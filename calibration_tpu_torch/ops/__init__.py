@@ -8,6 +8,7 @@ from . import (
     planarpose,
     planefit,
     projection_residuals,
+    ransac,
     se3,
     zhang,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "planarpose",
     "planefit",
     "projection_residuals",
+    "ransac",
     "se3",
     "zhang",
 ]

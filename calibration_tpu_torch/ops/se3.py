@@ -163,6 +163,22 @@ def se3_inverse(m):
     return make_se3(rt, -(rt @ m[..., :3, 3:4])[..., 0])
 
 
+def se3_apply(m, p):
+    """Apply poses to points p: (..., 3)."""
+    return torch.einsum("...ij,...j->...i", rot(m), p) + tra(m)
+
+
+def se3_exp(w6):
+    """The pose6 packing (omega, t) -> SE(3): rotation exp, translation
+    stored directly."""
+    return make_se3(exp_so3(w6[..., :3]), w6[..., 3:])
+
+
+def se3_log(m):
+    """SE(3) -> pose6 (omega, t), the inverse of ``se3_exp``."""
+    return torch.cat([log_so3(rot(m)), tra(m)], dim=-1)
+
+
 def average_isometries(poses, mask=None):
     """Quaternion sign-aligned average of SE(3) poses over the K axis.
 

@@ -26,3 +26,9 @@ def pack_intr_quats_trans(intr, quats, trans):
     lead = intr.shape[:-1]
     return torch.cat([intr, quats.reshape(lead + (-1,)), trans.reshape(lead + (-1,))], dim=-1)
 
+
+def unpack_intr_quats_trans(x, pc, v):
+    """(..., pc + 7V) -> ((..., pc), (..., V, 4), (..., V, 3))."""
+    lead = x.shape[:-1]
+    intr, quats, trans = torch.split(x, [pc, 4 * v, 3 * v], dim=-1)
+    return intr, quats.reshape(lead + (v, 4)), trans.reshape(lead + (v, 3))

@@ -10,9 +10,10 @@ pose b_se3_g[o]; its points project through c_se3_t = (g_se3_c)^-1
 hand-eye poses and the target pose are each free or frozen by the options;
 fx, fy get a zero lower bound when the intrinsics are free.
 
-The Jacobian is the analytic pinhole ``_residual_jac_pinhole`` by default
-(equal to jacfwd to 1e-10); ``analytic_jac=False`` differentiates the
-residual by forward-mode autodiff (``torch.func.vmap`` of ``jacfwd``).
+Any registry camera model projects the points. For the pinhole model the
+Jacobian is the analytic ``_residual_jac_pinhole`` by default (equal to
+jacfwd to 1e-10); ``analytic_jac=False``, and any other model, differentiate
+the residual by forward-mode autodiff (``torch.func.vmap`` of ``jacfwd``).
 The dense ``lm_core`` solves.
 """
 
@@ -24,11 +25,15 @@ import numpy as np
 import torch
 
 from ..models import pinhole
-from ..models.registry import PINHOLE
+from ..models.registry import PINHOLE, SPECS
 from ..ops import se3
 from . import blocks, lm
 from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
 from .manifold import ProductManifold, euclid, quat
+
+# the camera models the bundle solvers take (check_ported): every registry
+# model
+MODELS = tuple(m.name for m in SPECS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +72,18 @@ def _points(obj_xy):
     return torch.cat([obj_xy, torch.zeros_like(obj_xy[..., :1])], dim=-1)
 
 
-def _residual(x, obj_xy, img_uv, mask, b_se3_g, cam_idx, pc, c):
-    """Masked pixel residuals (B, O*N*2), rows ordered (observation, point,
-    u/v). x: (B, C*pc + 7C + 7); obj_xy/img_uv: (B, O, N, 2); mask
-    (B, O, N); b_se3_g (B, O, 4, 4); cam_idx (B, O) int."""
+def _residual(x, obj_xy, img_uv, mask, b_se3_g, cam_idx, pc, c, model=PINHOLE):
+    """Masked pixel residuals (B, O*N*2) through ``model``, rows ordered
+    (observation, point, u/v). x: (B, C*pc + 7C + 7); obj_xy/img_uv:
+    (B, O, N, 2); mask (B, O, N); b_se3_g (B, O, 4, 4); cam_idx (B, O)
+    int."""
     intr, gq, gt, bq, bt = unpack(x, pc, c)
     g_se3_c = blocks.quat_tran_to_poses(gq, gt)  # (B, C, 4, 4)
     b_se3_t = se3.make_se3(se3.quat_to_rotmat(bq), bt)  # (B, 4, 4)
     c_se3_b = se3.se3_inverse(_per_obs(g_se3_c, cam_idx)) @ se3.se3_inverse(b_se3_g)  # (B, O, 4, 4)
     c_se3_t = c_se3_b @ b_se3_t[:, None]
     pc3 = torch.einsum("boij,bonj->boni", se3.rot(c_se3_t), _points(obj_xy)) + se3.tra(c_se3_t)[:, :, None, :]
-    uv_hat = PINHOLE.project(_per_obs(intr, cam_idx)[:, :, None, :], pc3)
+    uv_hat = model.project(_per_obs(intr, cam_idx)[:, :, None, :], pc3)
     r = (uv_hat - img_uv) * mask[..., None]
     return r.reshape(r.shape[0], -1)
 
@@ -135,7 +141,7 @@ def _residual_jac_pinhole(x, obj_xy, img_uv, mask, b_se3_g, cam_idx, pc, c):
     return jac.reshape(jac.shape[0], -1, jac.shape[-1])
 
 
-def _free_and_lower(opts: BundleOptions, pc, c):
+def _free_and_lower(opts: BundleOptions, pc, c, model=PINHOLE):
     """(ambient free mask, fx/fy lower bounds) of one rig, as numpy."""
     n = c * pc + 7 * c + 7
     free = np.ones((n,), bool)
@@ -148,11 +154,11 @@ def _free_and_lower(opts: BundleOptions, pc, c):
     if not opts.optimize_intrinsics:
         free[o_int : o_int + c * pc] = False
     elif not opts.optimize_skew:
-        free[o_int + np.arange(c) * pc + PINHOLE.idx_skew] = False
+        free[o_int + np.arange(c) * pc + model.idx_skew] = False
     lower = np.full((n,), -np.inf)
     if opts.optimize_intrinsics:
-        lower[o_int + np.arange(c) * pc + PINHOLE.idx_fx] = 0.0
-        lower[o_int + np.arange(c) * pc + PINHOLE.idx_fy] = 0.0
+        lower[o_int + np.arange(c) * pc + model.idx_fx] = 0.0
+        lower[o_int + np.arange(c) * pc + model.idx_fy] = 0.0
     return free, lower
 
 
@@ -175,19 +181,20 @@ def optimize_bundle_device(
     one rig). obj_xy/img_uv: (B, O, N, 2); b_se3_g: (B, O, 4, 4) constant
     gripper poses; cam_idx: (B, O) int; init_intrs: (B, C, pc);
     init_g_se3_c: (B, C, 4, 4); init_b_se3_t: (B, 4, 4); mask: (B, O, N).
-    ``model`` is the pinhole model and ``precision`` "f64"
-    (``check_ported``). analytic_jac: the analytic pinhole Jacobian (the
-    default), or False for forward-mode autodiff.
+    ``model``: any registry model (``MODELS``), a spec or its name;
+    ``precision`` "f64" (``check_ported``). analytic_jac: the analytic
+    pinhole Jacobian (the default), or False for forward-mode autodiff,
+    which every other model uses.
 
     Returns (LMOutput, intr (B, C, pc), g_se3_c (B, C, 4, 4), b_se3_t
     (B, 4, 4), cov (B, n, n), cov_ok (B,)) with n = C*pc + 7C + 7; with
     covariance off, cov is zero and cov_ok False.
     """
-    check_ported(model, precision)
+    model = check_ported(model, precision, models=MODELS)
     opts = opts or BundleOptions()
     b, o, n = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
     c = init_intrs.shape[1]
-    pc = PINHOLE.param_count
+    pc = model.param_count
     dtype, device = obj_xy.dtype, obj_xy.device
     mask = torch.ones((b, o, n), dtype=dtype, device=device) if mask is None else mask.to(dtype)
     cam_idx = cam_idx.to(torch.long)
@@ -196,7 +203,7 @@ def optimize_bundle_device(
     bq = se3.rotmat_to_quat(se3.rot(init_b_se3_t))
     x0 = torch.cat([init_intrs.reshape(b, -1), gq.reshape(b, -1), gt.reshape(b, -1), bq, se3.tra(init_b_se3_t)], dim=-1)
     manifold = make_manifold(pc, c)
-    free_np, lower_np = _free_and_lower(opts, pc, c)
+    free_np, lower_np = _free_and_lower(opts, pc, c, model)
     free = torch.as_tensor(free_np, device=device)
     lower = torch.as_tensor(lower_np, dtype=dtype, device=device)
 
@@ -204,12 +211,12 @@ def optimize_bundle_device(
     data = (obj_xy, img_uv, mask, b_se3_g, cam_idx)
 
     def res_fn(x, *d):
-        return _residual(x, *d, pc, c)
+        return _residual(x, *d, pc, c, model)
 
     def jac_fn(x, *d):
         return _residual_jac_pinhole(x, *d, pc, c)
 
-    jac = jac_fn if analytic_jac else None
+    jac = jac_fn if analytic_jac and model.name == PINHOLE.name else None
     out = lm.lm_core(
         res_fn, x0, manifold, data=data, options=opts.core, free_mask=free, block_ids=block_ids,
         num_blocks=o, lower=lower, jac_fn=jac,

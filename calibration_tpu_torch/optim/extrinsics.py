@@ -1,6 +1,6 @@
-"""Joint multi-camera extrinsics (+ optional intrinsics) refinement,
-batched over rigs (port of ``calibration_tpu/optim/extrinsics.py``, Schur
-and dense solvers).
+"""Joint multi-camera extrinsics (+ optional intrinsics) refinement for any
+registry camera model, batched over rigs (port of
+``calibration_tpu/optim/extrinsics.py``, Schur and dense solvers).
 
 Parameter layout per rig: [intr_0..intr_C, cam_quat_0.., cam_tran_0..,
 view_quat_0.., view_tran_0..], the reference's ExtrinsicBlocks order.
@@ -10,9 +10,12 @@ fx, fy get a zero lower bound; skew is frozen unless ``optimize_skew``.
 
 The Schur engine's global block is the C intrinsics plus the C camera
 poses (a manifold: the camera quaternions retract by right-multiplied
-exp), the per-view block the target pose. The Jacobian is the analytic
-pinhole ``_view_residual_jac_pinhole``, which the reference's tests hold
-equal to its default per-camera grouped jacfwd (not ported). The dense
+exp), the per-view block the target pose. For the pinhole model the
+Schur Jacobian is the analytic ``_view_residual_jac_pinhole``, which the
+reference's tests hold equal to its jacfwd; for any other model it is
+forward mode: ``jac_mode="grouped"`` (``_view_residual_jac_grouped``, one
+(pc + 12)-tangent sweep per camera, scattered block-diagonally) or "full"
+(``lm_schur.view_jacobian_fn`` over the whole global tangent). The dense
 solver (``solver="dense"``) runs ``lm_core`` on the whole parameter vector
 with forward-mode Jacobians and the dense covariance.
 """
@@ -23,13 +26,18 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..models import pinhole
-from ..models.registry import PINHOLE
+from ..models.registry import PINHOLE, SPECS
 from ..ops import se3
 from . import blocks, lm, lm_schur
 from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
 from .manifold import ProductManifold, euclid, quat
+
+# the camera models the extrinsics solvers take (check_ported): every
+# registry model
+MODELS = tuple(m.name for m in SPECS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,12 +88,13 @@ def _rig_points(xg, vq, vt, obj, pc, c):
     return intr, cam_rot, view_rot, p_r, pc3
 
 
-def _view_residual(xg, vq, vt, obj, uv, mask, pc, c):
+def _view_residual(xg, vq, vt, obj, uv, mask, pc, c, model=PINHOLE):
     """Per-view residuals (B, V, C*N*2): each target view seen by all C
-    cameras, rows ordered (camera, point, u/v). xg: (B, C*pc + 7C);
-    vq/vt: (B, V, 4)/(B, V, 3); obj/uv: (B, V, C, N, 2); mask (B, V, C, N)."""
+    cameras through ``model``, rows ordered (camera, point, u/v). xg:
+    (B, C*pc + 7C); vq/vt: (B, V, 4)/(B, V, 3); obj/uv: (B, V, C, N, 2);
+    mask (B, V, C, N)."""
     intr, _, _, _, pc3 = _rig_points(xg, vq, vt, obj, pc, c)
-    uv_hat = PINHOLE.project(intr[:, None, :, None, :], pc3)
+    uv_hat = model.project(intr[:, None, :, None, :], pc3)
     r = (uv_hat - uv) * mask[..., None]
     return r.reshape(r.shape[:2] + (-1,))
 
@@ -128,13 +137,64 @@ def _view_residual_jac_pinhole(xg, vq, vt, obj, uv, mask, pc, c):
     return jac.reshape(jac.shape[:2] + (-1, jac.shape[-1]))
 
 
-def _residual_fns(pc, c):
-    res = lambda xg, q, t, o, u, m: _view_residual(xg, q, t, o, u, m, pc, c)  # noqa: E731
-    jac = lambda xg, q, t, o, u, m: _view_residual_jac_pinhole(xg, q, t, o, u, m, pc, c)  # noqa: E731
+def _view_residual_jac_grouped(xg, vq, vt, obj, uv, mask, pc, c, model=PINHOLE):
+    """Forward-mode tangent Jacobian of ``_view_residual`` for any model, in
+    ``_view_residual_jac_pinhole``'s layout, grouped per camera.
+
+    Camera c's rows depend only on its own intrinsics and pose and on the
+    view's pose, so one sweep per coordinate of the local (pc + 12)-tangent
+    [intr_c (pc), omega_c (3), t_c (3), omega_v (3), t_v (3)], every camera
+    perturbed in its own copy of the coordinate at once, gives every
+    camera's block; the blocks are scattered block-diagonally. The sweeps
+    run as one evaluation of the residual on the batch repeated pc + 12
+    times, copy k carrying unit tangent k as a dual number (the idiom of
+    ``lm_schur.view_jacobian_fn``), through the engine's own retractions.
+    The fx/fy lower bounds are taken as inactive, as in the analytic one.
+    """
+    b, v, _, n = obj.shape[:4]
+    k = pc + 12
+    g_manifold = global_manifold(pc, c)
+    tan = torch.eye(k, dtype=xg.dtype, device=xg.device)[:, None, :].expand(k, b, k).reshape(k * b, k)
+    # the global tangent layout [intr x C | omega_cam x C | t_cam x C]
+    tan_g = torch.cat([tan[:, :pc].repeat(1, c), tan[:, pc : pc + 3].repeat(1, c), tan[:, pc + 3 : pc + 6].repeat(1, c)],
+                      dim=-1)
+    tan_v = tan[:, None, pc + 6 :].expand(k * b, v, 6)
+
+    def rep(a):  # (B, ...) -> (k * B, ...), copy j carries column j
+        return a.expand((k,) + a.shape).reshape((k * a.shape[0],) + a.shape[1:])
+
+    with fwAD.dual_level():
+        xr = g_manifold.retract(rep(xg), fwAD.make_dual(torch.zeros_like(tan_g), tan_g))
+        q_new, t_new = lm_schur._retract_views(rep(vq), rep(vt), fwAD.make_dual(torch.zeros_like(tan_v), tan_v))
+        r = _view_residual(xr, q_new, t_new, rep(obj), rep(uv), rep(mask), pc, c, model)
+        jac = fwAD.unpack_dual(r).tangent  # (k * B, V, C*N*2)
+    jac = jac.reshape(k, b, v, c, n, 2).permute(1, 2, 3, 4, 5, 0)  # (B, V, C, N, 2, k)
+    out = torch.cat(
+        [
+            _block_diag_cols(jac[..., :pc], c),
+            _block_diag_cols(jac[..., pc : pc + 3], c),
+            _block_diag_cols(jac[..., pc + 3 : pc + 6], c),
+            jac[..., pc + 6 :],
+        ],
+        dim=-1,
+    )
+    return out.reshape(b, v, -1, out.shape[-1])
+
+
+def _residual_fns(pc, c, model=PINHOLE, jac_mode="grouped"):
+    """(per-view residual, its Schur Jacobian) of ``model``: the analytic
+    one for the pinhole model, else the forward-mode ``jac_mode``."""
+    res = lambda xg, q, t, o, u, m: _view_residual(xg, q, t, o, u, m, pc, c, model)  # noqa: E731
+    if model.name == PINHOLE.name:
+        jac = lambda xg, q, t, o, u, m: _view_residual_jac_pinhole(xg, q, t, o, u, m, pc, c)  # noqa: E731
+    elif jac_mode == "grouped":
+        jac = lambda xg, q, t, o, u, m: _view_residual_jac_grouped(xg, q, t, o, u, m, pc, c, model)  # noqa: E731
+    else:
+        jac = lm_schur.view_jacobian_fn(res, g_manifold=global_manifold(pc, c))
     return res, jac
 
 
-def _free_mask(opts: ExtrinsicOptions, pc, c, v):
+def _free_mask(opts: ExtrinsicOptions, pc, c, v, model=PINHOLE):
     """(C*pc + 7C + 7V,) ambient free mask with the reference's gauge."""
     free = np.ones((c * pc + 7 * c + 7 * v,), bool)
     o_int, o_cq, o_ct = 0, c * pc, c * pc + 4 * c
@@ -150,7 +210,7 @@ def _free_mask(opts: ExtrinsicOptions, pc, c, v):
         free[o_cq : o_cq + 4] = False
         free[o_ct : o_ct + 3] = False
     if not opts.optimize_skew:
-        free[o_int + np.arange(c) * pc + PINHOLE.idx_skew] = False
+        free[o_int + np.arange(c) * pc + model.idx_skew] = False
     return free
 
 
@@ -159,7 +219,7 @@ def _check_solver(solver: str) -> None:
         raise ValueError(f"unknown solver '{solver}'")
 
 
-def _residual_flat(x, obj_xy, img_uv, mask):
+def _residual_flat(x, obj_xy, img_uv, mask, model=PINHOLE):
     """The dense solver's residual (B, 2NCV) of the flat parameters, rows
     ordered (view, camera, point, u/v)."""
     v, c = obj_xy.shape[-4], obj_xy.shape[-3]
@@ -168,11 +228,11 @@ def _residual_flat(x, obj_xy, img_uv, mask):
     lead = x.shape[:-1]
     vq = x[..., ga : ga + 4 * v].reshape(lead + (v, 4))
     vt = x[..., ga + 4 * v :].reshape(lead + (v, 3))
-    r = _view_residual(x[..., :ga], vq, vt, obj_xy, img_uv, mask, pc, c)
+    r = _view_residual(x[..., :ga], vq, vt, obj_xy, img_uv, mask, pc, c, model)
     return r.reshape(lead + (-1,))
 
 
-def _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower, manifold):
+def _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower, manifold, model):
     """``optimize_extrinsics_device`` with solver="dense": (LMOutput, cov,
     cov_ok). Unlike the reference's dense branch, which computes the
     covariance whatever the options say, it is computed only when
@@ -180,13 +240,17 @@ def _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower, manifold):
     b, v, c, n = obj_xy.shape[:4]
     block_ids = np.repeat(np.arange(v * c), 2 * n)
     data = (obj_xy, img_uv, mask)
+
+    def res_fn(x, obj, uv, m):
+        return _residual_flat(x, obj, uv, m, model)
+
     out = lm.lm_core(
-        _residual_flat, x0, manifold, data=data, options=opts.core, free_mask=free, block_ids=block_ids,
+        res_fn, x0, manifold, data=data, options=opts.core, free_mask=free, block_ids=block_ids,
         num_blocks=v * c, lower=lower,
     )
     if opts.core.compute_covariance:
         cov, cov_ok = lm.covariance(
-            _residual_flat, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v * c,
+            res_fn, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v * c,
             huber_delta=opts.core.huber_delta,
         )
     else:
@@ -203,21 +267,23 @@ def optimize_extrinsics_device(
     its order, with a leading B axis on every tensor (the reference's takes
     one rig). obj_xy/img_uv: (B, V, C, N, 2); init_intrs: (B, C, pc);
     init_c_se3_r: (B, C, 4, 4); init_r_se3_t: (B, V, 4, 4); mask:
-    (B, V, C, N). ``model`` is the pinhole model (``check_ported``).
-    ``analytic_jac`` and ``jac_mode`` ("grouped" or "full") choose how the
-    reference computes the Schur Jacobian; the port's analytic one equals
-    each of them to 1e-10, so any ``analytic_jac`` is accepted.
+    (B, V, C, N). ``model``: any registry model (``MODELS``), a spec or
+    its name. For the pinhole model the Schur Jacobian is the analytic
+    one, which equals each of the reference's to 1e-10, so any
+    ``analytic_jac`` and ``jac_mode`` is accepted; for another model
+    ``jac_mode`` ("grouped" or "full") chooses the forward-mode Jacobian,
+    as in the reference.
 
     Returns (LMOutput, intr (B, C, pc), c_se3_r (B, C, 4, 4), r_se3_t
     (B, V, 4, 4), cov (B, n, n), cov_ok (B,)) with n = C*pc + 7C + 7V.
     """
-    check_ported(model)
+    model = check_ported(model, models=MODELS)
     _check_solver(solver)
     if jac_mode not in ("grouped", "full"):
         raise NotImplementedError(f"jac_mode '{jac_mode}' is not ported yet (grouped|full)")
     opts = opts or ExtrinsicOptions()
     b, v, c = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
-    pc = PINHOLE.param_count
+    pc = model.param_count
     dtype, device = obj_xy.dtype, obj_xy.device
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=device) if mask is None else mask.to(dtype)
 
@@ -228,11 +294,11 @@ def optimize_extrinsics_device(
     manifold = make_manifold(pc, c, v)
     g_manifold = global_manifold(pc, c)
 
-    free_np = _free_mask(opts, pc, c, v)
+    free_np = _free_mask(opts, pc, c, v, model)
     free = torch.as_tensor(free_np, device=device)
     lower = np.full((ga,), -np.inf)
-    lower[np.arange(c) * pc + PINHOLE.idx_fx] = 0.0
-    lower[np.arange(c) * pc + PINHOLE.idx_fy] = 0.0
+    lower[np.arange(c) * pc + model.idx_fx] = 0.0
+    lower[np.arange(c) * pc + model.idx_fy] = 0.0
     # per-view pose freezing is the target-0 gauge
     view_free = torch.as_tensor(free_np[ga : ga + 4 * v].reshape(v, 4)[:, 0], dtype=dtype, device=device)
 
@@ -240,12 +306,12 @@ def optimize_extrinsics_device(
         lower_a = torch.cat([torch.as_tensor(lower, dtype=dtype, device=device),
                              torch.full((7 * v,), -torch.inf, dtype=dtype, device=device)])
         x0 = torch.cat([xg0, vq.reshape(b, -1), vt.reshape(b, -1)], dim=-1)
-        out, cov, cov_ok = _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower_a, manifold)
+        out, cov, cov_ok = _optimize_dense(x0, obj_xy, img_uv, mask, opts, free, lower_a, manifold, model)
         intr, cqf, ctf, vqf, vtf = unpack(out.x, pc, c, v)
         return (out, intr, blocks.quat_tran_to_poses(cqf, ctf), blocks.quat_tran_to_poses(vqf, vtf), cov,
                 cov_ok)
 
-    res_fn, jac_fn = _residual_fns(pc, c)
+    res_fn, jac_fn = _residual_fns(pc, c, model, jac_mode)
     view_data = (obj_xy, img_uv, mask)
     sout = lm_schur.lm_core_schur(
         res_fn, jac_fn, xg0, vq, vt, view_data, options=opts.core, g_free=free[:ga],

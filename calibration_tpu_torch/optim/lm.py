@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg
 from .core import OptimOptions
@@ -104,6 +105,45 @@ def tangent_jacobian(residual_fn: Callable, manifold: ProductManifold, x, data=(
     zero = torch.zeros(x.shape[:-1] + (manifold.tangent_dim,), dtype=x.dtype, device=x.device)
     jac, r = torch.func.vmap(torch.func.jacfwd(lane, has_aux=True))(zero, x, *bounds, *data)
     return r, jac
+
+
+def dual_jacobian_fn(residual_fn: Callable, manifold: ProductManifold, lower=None, upper=None) -> Callable:
+    """A ``jac_fn`` for ``lm_core`` and ``covariance``: the Jacobian of
+    ``tangent_jacobian`` by dual numbers instead of ``vmap(jacfwd)``. The
+    t tangent sweeps run as ONE evaluation of ``residual_fn`` on the batch
+    repeated t times, copy c carrying unit tangent c (the idiom of
+    ``lm_schur.view_jacobian_fn``). Optional (a,) ``lower``/``upper`` clip
+    the retracted point, as in ``tangent_jacobian``."""
+
+    def jac_fn(x, *data):
+        b, t = x.shape[0], manifold.tangent_dim
+        eye = torch.eye(t, dtype=x.dtype, device=x.device)
+
+        def rep(a):  # (B, ...) -> (t * B, ...), copy c carries column c
+            return a.expand((t,) + a.shape).reshape((t * a.shape[0],) + a.shape[1:])
+
+        with fwAD.dual_level():
+            d = fwAD.make_dual(x.new_zeros((t * b, t)), eye[:, None, :].expand(t, b, t).reshape(t * b, t))
+            xr = manifold.retract(rep(x), d)
+            if lower is not None:
+                xr = torch.maximum(xr, lower.to(x.dtype))
+            if upper is not None:
+                xr = torch.minimum(xr, upper.to(x.dtype))
+            jac = fwAD.unpack_dual(residual_fn(xr, *(rep(a) for a in data))).tangent  # (t * B, m)
+        return jac.reshape(t, b, -1).permute(1, 2, 0)
+
+    return jac_fn
+
+
+def forward_jacobian_fn(mode: str, residual_fn: Callable, manifold: ProductManifold, lower=None, upper=None):
+    """The ``jac_fn`` of a forward-mode Jacobian by name, for ``lm_core``
+    and ``covariance``: "dual" is ``dual_jacobian_fn``; "vmap" is None,
+    ``lm_core``'s own ``tangent_jacobian``. The two agree to roundoff."""
+    if mode == "dual":
+        return dual_jacobian_fn(residual_fn, manifold, lower, upper)
+    if mode != "vmap":
+        raise ValueError(f"unknown forward-mode Jacobian '{mode}' (dual|vmap)")
+    return None
 
 
 def _tan_free(manifold: ProductManifold, free_mask, b: int, dtype, device):

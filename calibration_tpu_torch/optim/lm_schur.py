@@ -66,12 +66,13 @@ def _retract_views(quats, trans, dv):
     return qn, trans + dv[..., 3:]
 
 
-def view_jacobian_fn(residual_fn: Callable) -> Callable:
+def view_jacobian_fn(residual_fn: Callable, *, g_manifold=None) -> Callable:
     """A ``jac_fn`` for ``lm_core_schur`` and ``tangent_covariance`` from any
-    per-view residual with a Euclidean global block, by forward-mode
-    autodiff: the Jacobian of the retracted residual at zero tangent,
-    columns [global (pg) | omega (3) | t (3)], as the reference's
-    ``vmap(jacfwd)`` of its ``res_local``.
+    per-view residual, by forward-mode autodiff: the Jacobian of the
+    retracted residual at zero tangent, columns [global tangent (pg) |
+    omega (3) | t (3)], as the reference's ``vmap(jacfwd)`` of its
+    ``res_local``. The global block retracts through ``g_manifold`` (a
+    rig's camera quaternions), or by addition when it is None.
 
     Each view's residual depends only on its lane's global block and its
     own pose, so one forward sweep per tangent column over the whole
@@ -89,7 +90,7 @@ def view_jacobian_fn(residual_fn: Callable) -> Callable:
 
     def jac_fn(xg, quats, trans, *view_data):
         b, v = quats.shape[:2]
-        pg = xg.shape[-1]
+        pg = _global_tangent_dim(xg, g_manifold)
         cols = pg + 6
         eye = torch.eye(cols, dtype=xg.dtype, device=xg.device)
 
@@ -101,7 +102,8 @@ def view_jacobian_fn(residual_fn: Callable) -> Callable:
             dv = fwAD.make_dual(xg.new_zeros((cols * b, v, 6)),
                                 eye[:, None, None, pg:].expand(cols, b, v, 6).reshape(cols * b, v, 6))
             q_new, t_new = _retract_views(rep(quats), rep(trans), dv)
-            r = residual_fn(rep(xg) + dg, q_new, t_new, *(rep(d) for d in view_data))
+            xg_new = rep(xg) + dg if g_manifold is None else g_manifold.retract(rep(xg), dg)
+            r = residual_fn(xg_new, q_new, t_new, *(rep(d) for d in view_data))
             jac = fwAD.unpack_dual(r).tangent  # (cols * B, V, m)
         return jac.reshape((cols, b) + jac.shape[1:]).permute(1, 2, 3, 0)  # (B, V, m, pg + 6)
 

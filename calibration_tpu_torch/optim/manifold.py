@@ -47,16 +47,31 @@ class ProductManifold:
             )
             self.ambient_dim += a
             self.tangent_dim += t
+        # consecutive blocks of one kind, retracted together: (kind, count,
+        # amb_slice, tan_slice)
+        self._runs = []
+        for kind, sa, st in self._segments:
+            if self._runs and self._runs[-1][0] == kind:
+                _, count, ra, rt = self._runs[-1]
+                self._runs[-1] = (kind, count + 1, slice(ra.start, sa.stop), slice(rt.start, st.stop))
+            else:
+                self._runs.append((kind, 1, sa, st))
 
     def retract(self, x, delta):
-        """x_ambient (+) delta_tangent -> x_ambient."""
+        """x_ambient (+) delta_tangent -> x_ambient. Each run of consecutive
+        blocks of one kind is retracted by one set of operations (the same
+        arithmetic per block): under forward-mode autodiff every operation
+        costs host time, and a rig or a camera has tens of quaternion
+        blocks."""
         parts = []
-        for kind, sa, st in self._segments:
+        for kind, count, sa, st in self._runs:
             if kind == "euclid":
                 parts.append(x[..., sa] + delta[..., st])
             else:  # quat: right-multiply the local exp, normalized
-                qn = se3.quat_mul(x[..., sa], se3.exp_quat(delta[..., st]))
-                parts.append(qn / torch.linalg.norm(qn, dim=-1, keepdim=True))
+                lead = x.shape[:-1]
+                q = x[..., sa].reshape(lead + (count, 4))
+                qn = se3.quat_mul(q, se3.exp_quat(delta[..., st].reshape(delta.shape[:-1] + (count, 3))))
+                parts.append((qn / torch.linalg.norm(qn, dim=-1, keepdim=True)).reshape(qn.shape[:-2] + (4 * count,)))
         return torch.cat(parts, dim=-1)
 
     def lift_jacobian(self, x):

@@ -1,5 +1,5 @@
-"""Batched homography, planar-intrinsics, extrinsics, hand-eye, bundle and
-line-scan entry points (port of those parts of
+"""Batched homography, planar-intrinsics, extrinsics, hand-eye, planar-pose,
+bundle and line-scan entry points (port of
 ``calibration_tpu/parallel/batched.py``).
 
 The reference lifts single-problem cores over a problem axis with
@@ -8,8 +8,9 @@ leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
 between phases becomes a host decision. Every entry point takes the
 reference's parameters in its order; ``mesh`` (sharding), precisions other
 than "f64" and camera models a path does not take raise
-``NotImplementedError`` (``check_ported``: the intrinsics and line-scan
-paths take pinhole and Scheimpflug, the others pinhole), and
+``NotImplementedError`` (``check_ported``: the intrinsics, extrinsics and
+line-scan paths take every registry model, bundle_batch pinhole, as the
+reference's), and
 ``analytic_jac`` is accepted for any value (the analytic Jacobians equal
 jacfwd to 1e-10; other models always use forward-mode autodiff).
 """
@@ -30,6 +31,7 @@ from ..ops.ransac import RansacOptions, ransac_plane
 from ..ops.projection_residuals import projection_rms_f32
 from ..optim.bundle import BundleOptions, optimize_bundle_device
 from ..optim.core import OptimOptions, check_ported
+from ..optim.extrinsics import MODELS as EXTRINSICS_MODELS
 from ..optim.extrinsics import ExtrinsicOptions, optimize_extrinsics_device
 from ..optim.handeye import optimize_handeye_device
 from ..optim.homography import homography_covariance_device, optimize_homography_device
@@ -40,6 +42,7 @@ from ..optim.intrinsics import (
     optimize_intrinsics_device,
 )
 from ..optim.lm import LMOutput
+from ..optim.planarpose import optimize_planar_pose_device
 
 # The reference's measured pinhole defaults (its CALIB_TWO_PHASE_CAP
 # override is not ported): run the full batch up to TWO_PHASE_CAP_A
@@ -313,11 +316,11 @@ def reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask=None):
     return projection_rms_f32(c_se3_t, intrs, obj_xy, img_uv, mask)
 
 
-def _extrinsics_phased_solve(opts: ExtrinsicOptions, solver: str):
+def _extrinsics_phased_solve(opts: ExtrinsicOptions, solver: str, model):
     def solve(iters, obj, uv, mask, intrs, c_se3_r, r_se3_t):
         core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
         return optimize_extrinsics_device(
-            obj, uv, intrs, c_se3_r, r_se3_t, mask=mask,
+            obj, uv, intrs, c_se3_r, r_se3_t, mask=mask, model=model,
             opts=dataclasses.replace(opts, core=core), solver=solver,
         )
 
@@ -341,9 +344,10 @@ def extrinsics_batch(
     """Joint multi-camera extrinsics refinement for a fleet of B rigs (the
     path the stereo benchmark times).
 
-    obj_xy/img_uv: (B, V, C, N, 2); init_intrs: (B, C, pc); init_c_se3_r:
-    (B, C, 4, 4); init_r_se3_t: (B, V, 4, 4); mask: (B, V, C, N). Returns
-    the ``optimize_extrinsics_device`` tuple.
+    obj_xy/img_uv: (B, V, C, N, 2); init_intrs: (B, C, pc) for
+    ``model_name`` (any registry model); init_c_se3_r: (B, C, 4, 4);
+    init_r_se3_t: (B, V, 4, 4); mask: (B, V, C, N). Returns the
+    ``optimize_extrinsics_device`` tuple.
 
     two_phase: run the ``_phase_budget`` of EXTRINSICS_PHASE_CAP and
     EXTRINSICS_PHASE_MID, each phase restarting the unconverged lanes (see
@@ -351,9 +355,9 @@ def extrinsics_batch(
     forces one phase, as in the reference:
     the phase boundaries restart the damping, so a phased solve is a
     different LM path, and the reference computes covariance only on the
-    single-phase one. Only the pinhole model is ported.
+    single-phase one. Every model runs the same schedule.
     """
-    check_ported(model_name, mesh=mesh)
+    model = check_ported(model_name, mesh=mesh, models=EXTRINSICS_MODELS)
     opts = opts or ExtrinsicOptions()
     dtype = obj_xy.dtype
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
@@ -362,14 +366,15 @@ def extrinsics_batch(
         two_phase = b >= TWO_PHASE_MIN_BATCH
     if not two_phase or opts.core.compute_covariance:
         return optimize_extrinsics_device(
-            obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=mask, opts=opts, solver=solver
+            obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask=mask, model=model, opts=opts,
+            solver=solver,
         )
     lm_m, (intr_m, c_m, r_m) = _phased_lm(
-        _extrinsics_phased_solve(opts, solver), (obj_xy, img_uv, mask),
+        _extrinsics_phased_solve(opts, solver, model), (obj_xy, img_uv, mask),
         (init_intrs, init_c_se3_r, init_r_se3_t),
         _phase_budget(opts.core.max_iterations, (EXTRINSICS_PHASE_CAP, EXTRINSICS_PHASE_MID)),
     )
-    n_amb = c * PINHOLE.param_count + 7 * c + 7 * v
+    n_amb = c * model.param_count + 7 * c + 7 * v
     cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
     cov_ok = torch.zeros((b,), dtype=torch.bool, device=obj_xy.device)
     return lm_m, intr_m, c_m, r_m, cov, cov_ok
@@ -445,6 +450,18 @@ def handeye_batch(
     pairs = handeye_linear.build_all_pairs(base_se3_gripper, cam_se3_target, min_angle_deg)
     init, _ = handeye_linear.estimate_handeye_dlt_pairs(pairs)
     return optimize_handeye_device(pairs, init, options, rot_residual=rot_residual)
+
+
+def planar_pose_batch(obj_xy, img_uv, kmtx, mask=None, options: OptimOptions = OptimOptions(), mesh=None):
+    """VarPro planar pose for a batch: the planar-pose DLT seed under K,
+    then ``optimize_planar_pose_device`` with two radial coefficients.
+    obj_xy/img_uv: (B, N, 2); kmtx: (B, 5); mask: optional (B, N). Returns
+    its tuple."""
+    check_ported(mesh=mesh)
+    if mask is None:
+        mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
+    init = planarpose.estimate_planar_pose(obj_xy, img_uv, kmtx, mask)
+    return optimize_planar_pose_device(init, obj_xy, img_uv, kmtx, num_radial=2, mask=mask, options=options)
 
 
 def _bundle_phased_solve(opts: BundleOptions, analytic_jac: bool):

@@ -103,7 +103,27 @@
    committed example, a RANSAC variant of it and a Scheimpflug input:
    exit 0 and the CPU app's artifact within the report bounds. No new
    phase launches K1 (checked).
-17. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+17. VarPro planar pose on every view of the bench.py set (2560 problems,
+   K at the truth, k3 = 0) through ``planar_pose_batch``: every lane
+   converged, each pose within PLANAR_TOL of the truth, the mean RMS at
+   the noise, covariance finite; first call and warm median; card vs CPU
+   on 32 lanes (cost within 1e-7 relative, the same linearizations and
+   success: the trials at the minimum are roundoff's, see
+   PLANAR_PARITY_COUNTERS).
+18. Semi-DLT on the bench.py set's 256 cameras (the Zhang seed's K)
+   through ``optimize_intrinsics_semidlt_device``: every camera
+   converged, K and k1, k2 within SEMIDLT_TOL of the truth, the RMS at
+   the noise, covariance finite; card vs CPU on 8 cameras (cost, the same
+   iterations and termination).
+19. Config 3's stereo set through the Scheimpflug camera (tau = (0.06,
+   -0.04), p1 = p2 = 0) via ``extrinsics_batch(model_name=...)``, the
+   cameras fixed: every rig converged, camera 1 within POSE_TOL; card vs
+   CPU on 8 rigs.
+20. Config 5's set through the same camera via
+   ``optimize_bundle_device(model=SCHEIMPFLUG)``, the intrinsics fixed:
+   every rig converged, g_se3_c within BUNDLE_TOL; card vs CPU on 8 rigs.
+   None of 17-20 launches K1 (checked).
+21. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
    time of the bare launcher captured in a CUDA graph (L2-warm on one input
    set, L2-cold over rotating sets), the kernel's duration as
    torch.profiler reads it, the wrapper's host time per call, the bound and
@@ -145,9 +165,12 @@ from calibration_tpu_torch.apps import bundle_pipeline, homography as homography
 from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, linescan_calibration, planar_intrinsics
 from calibration_tpu_torch.kernels import _build
 from calibration_tpu_torch.models import pinhole, scheimpflug
+from calibration_tpu_torch.models.registry import SCHEIMPFLUG
+from calibration_tpu_torch.ops import intrinsics_linear
 from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import ransac
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.optim import optimize_bundle_device, optimize_intrinsics_semidlt_device
 from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
 from calibration_tpu_torch.parallel import linescan_ransac_batch
@@ -239,6 +262,36 @@ SCHEIM_ROWS = {
 TILT_GATES = (0.006, 0.015, 0.03)  # bench_all.py's: median, p95 and max of |tau - truth|, rad
 SCHEIM_RMS_PX = (0.15, 0.25)  # mean view RMS at the injected 0.2 px
 WARM_CALLS = 7  # warm calls per timed cell (the median is reported)
+PLANAR_CAMERAS = 256  # planar pose: the bench.py set's 256 cameras x 10 views
+PLANAR_PARITY_LANES = 32
+PLANAR_OPTS = OptimOptions(max_iterations=50)  # the reference's planar_pose_batch default, covariance on
+# planar pose's card/CPU parity holds the linearizations and success, not
+# the trials: each lane's last linearization sits at the minimum, where
+# accepting a step is decided by roundoff (perturbing the data by 1e-15
+# relative on the CPU changes the trials of 263 and the stopping tolerance
+# of 40 of the 2560 lanes, and the linearizations of none)
+PLANAR_PARITY_COUNTERS = ("linearizations", "success")
+# each view's pose vs the truth on every lane of the 2560: about 1.3x the
+# JAX reference's own worst lane (CPU, f64, the same set;
+# tools/solver_reference.py), 4.20 mm / 0.541 deg
+PLANAR_TOL_M = 0.0055
+PLANAR_TOL_DEG = 0.7
+SEMIDLT_CAMERAS = 256
+SEMIDLT_PARITY_CAMERAS = 8
+SEMIDLT_OPTS = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=60))
+# fx, fy, cx, cy (px) and k1, k2 vs the truth on every camera: about 1.3x
+# the JAX reference's own worst camera (CPU, f64, the same set;
+# tools/solver_reference.py), 6.90 px, 0.053 and 0.708: at 0.2 px noise
+# the global distortion fit trades k2 against fx and the poses
+SEMIDLT_TOL_PX = 9.0
+SEMIDLT_TOL_K = (0.07, 0.92)
+SOLVER_TILT = (0.06, -0.04)  # the Scheimpflug stereo and bundle cells' sensor tilt
+SOLVER_PARITY_RIGS = 8
+# the camera fixed at the truth: camera 1's pose only. The JAX reference's
+# worst rig (tools/solver_reference.py) is 1.55 mm / 0.098 deg, well inside
+# POSE_TOL
+STEREO_SCHEIM_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False),
+                                      optimize_intrinsics=False)
 
 
 class SmokeFailure(RuntimeError):
@@ -280,11 +333,13 @@ def _pose(w, t):
 
 def _render(intr, c_se3_t, obj, noise, rng):
     """Pixels (V, N, 2) of planar points obj (N, 2) seen from poses
-    c_se3_t (V, 4, 4), through the port's pinhole model on the CPU in
-    float64, plus Gaussian noise."""
+    c_se3_t (V, 4, 4), through the port's pinhole model (a 10-parameter
+    camera) or Scheimpflug model (12) on the CPU in float64, plus Gaussian
+    noise."""
     obj3 = np.concatenate([obj, np.zeros((obj.shape[0], 1))], -1)
     pc = np.einsum("vij,nj->vni", c_se3_t[:, :3, :3], obj3) + c_se3_t[:, None, :3, 3]
-    uv = pinhole.project(torch.as_tensor(intr), torch.as_tensor(pc)).numpy()
+    model = scheimpflug if len(intr) == 12 else pinhole
+    uv = model.project(torch.as_tensor(intr), torch.as_tensor(pc)).numpy()
     return uv + rng.normal(0, noise, uv.shape) if noise > 0 else uv
 
 
@@ -549,15 +604,24 @@ def make_problems(batch, views=10, rows=8, cols=11, noise=0.2, seed=7):
     return np.tile(obj[None, None], (batch, views, 1, 1)), uv, intr
 
 
-def stereo_problems(batch, views=8, rows=5, cols=7, noise=0.2, seed=13):
+def _solver_camera(tilt_tau):
+    """The benchmark sets' camera: pinhole, or with ``tilt_tau`` the
+    Scheimpflug camera with that tilt and zero tangential distortion."""
+    if tilt_tau is None:
+        return np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    return np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 0.0, 0.0, *tilt_tau])
+
+
+def stereo_problems(batch, views=8, rows=5, cols=7, noise=0.2, seed=13, tilt_tau=None):
     """The JAX package's stereo benchmark set (its
     benchmarks/problems.py::stereo_problems, BASELINE config 3): B
     two-camera rigs, camera 1 offset per rig, views on a circle, shared
-    perturbed inits. Returns a dict of numpy arrays."""
+    perturbed inits; through the Scheimpflug camera of ``_solver_camera``
+    when ``tilt_tau`` is given. Returns a dict of numpy arrays."""
     rng = np.random.default_rng(seed)
     obj = _grid(rows, cols, 0.05)
     n = obj.shape[0]
-    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    intr = _solver_camera(tilt_tau)
     rel_gt = np.stack([_pose([0.02, -0.3 - 0.001 * i, 0.01], [-0.2 - 1e-4 * i, 0.01, 0.015]) for i in range(batch)])
     uv = np.zeros((batch, views, 2, n, 2))
     rts = np.zeros((batch, views, 4, 4))
@@ -624,15 +688,16 @@ def _handeye_sequence(num_poses, rng, g_se3_c, b_se3_t):
     return np.stack(bg), np.stack(ct)
 
 
-def bundle_problems(batch, num_obs=20, rows=8, cols=11, noise=0.2, seed=19):
+def bundle_problems(batch, num_obs=20, rows=8, cols=11, noise=0.2, seed=19, tilt_tau=None):
     """The JAX package's bundle benchmark set (its
     benchmarks/problems.py::bundle_problems, BASELINE config 5): B rigs of
     one camera, ``num_obs`` observations of a planar grid with pixel noise,
-    and the truth perturbed by fixed small poses as the g0 and b0 seeds.
-    Returns a dict of numpy arrays."""
+    and the truth perturbed by fixed small poses as the g0 and b0 seeds;
+    through the Scheimpflug camera of ``_solver_camera`` when ``tilt_tau``
+    is given. Returns a dict of numpy arrays."""
     rng = np.random.default_rng(seed)
     obj = _grid(rows, cols, 0.03)
-    intr = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 1e-4, -1e-4])
+    intr = _solver_camera(tilt_tau)
     out = {k: [] for k in ("g_gt", "b_gt", "bg", "uv", "g0", "b0")}
     dp = _pose([0.008, -0.006, 0.01], [0.003, -0.002, 0.004])
     dq = _pose([-0.005, 0.007, -0.004], [0.002, 0.003, -0.002])
@@ -1601,6 +1666,158 @@ def scheimpflug_phase(dev, card, row):
     return med
 
 
+def timed_cell(run, dev):
+    """(result, first call s, warm median s, warm calls): the first call,
+    then ``warm_median``'s."""
+    out, first_s = timed(run, dev)
+    return (out, first_s) + warm_median(run, dev)
+
+
+def lm_parity(card_lm, cpu_lm, what, counters=("iterations", "termination")):
+    """Card vs CPU on the first lanes: final cost within COST_PARITY_RTOL
+    relative and the same ``counters``; the lanes whose trials or
+    termination differ are counted either way."""
+    k = cpu_lm.cost.shape[0]
+    rel = float(((card_lm.cost[:k].cpu() - cpu_lm.cost).abs() / cpu_lm.cost.abs()).max())
+    same = all(torch.equal(getattr(card_lm, f)[:k].cpu(), getattr(cpu_lm, f)) for f in counters)
+    moved = int(((card_lm.iterations[:k].cpu() != cpu_lm.iterations) |
+                 (card_lm.termination[:k].cpu() != cpu_lm.termination)).sum())
+    names = " and ".join(counters)
+    print(f"[smoke] {what} card vs CPU, first {k} lanes: final cost max rel diff {rel!r}, same {names} {same}; "
+          f"lanes with other trials or termination {moved}")
+    check(rel <= COST_PARITY_RTOL and same,
+          f"{what} card/CPU parity: cost within {COST_PARITY_RTOL} relative, the same {names}")
+
+
+def planar_problems(cameras):
+    """The planar-pose cell: every view of the bench.py set (cameras x 10
+    views of the 8x11 grid, 0.2 px, seed 7; k3 = 0) as one problem, K at
+    the truth. Returns (obj (B, 88, 2), uv, kmtx (B, 5), true poses
+    (B, 4, 4)) with B = 10 x cameras."""
+    obj, uv, intr = make_problems(cameras)
+    n = obj.shape[-2]
+    kmtx = np.tile(intr[:5], (cameras * obj.shape[1], 1))
+    return obj.reshape(-1, n, 2), uv.reshape(-1, n, 2), kmtx, bench_poses(cameras).reshape(-1, 4, 4)
+
+
+def planar_pose_phase(dev, card):
+    """VarPro planar pose on the 2560 views of the bench.py set through
+    planar_pose_batch on the card: every lane converged, each pose within
+    PLANAR_TOL of the truth, the mean RMS at the 0.2 px noise, covariance
+    finite, no K1 launch; first call and warm median; card/CPU on
+    PLANAR_PARITY_LANES lanes. Returns the warm median in s."""
+    obj, uv, kmtx, truth = planar_problems(PLANAR_CAMERAS)
+    b = obj.shape[0]
+    run = functools.partial(batched.planar_pose_batch, *(torch.as_tensor(a, device=dev) for a in (obj, uv, kmtx)),
+                            options=PLANAR_OPTS)
+    zero_launches()
+    (lm, pose, coeffs, cov, cov_ok, rms), first_s, med, warm = timed_cell(run, dev)
+    check_no_launches("planar pose")
+    tra, rot = pose_errors(pose.cpu().numpy(), truth)
+    mean_rms = float(rms.mean())
+    print(f"[smoke] planar pose B={b}: pose vs truth max {tra!r} m, {rot!r} deg; mean RMS {mean_rms!r} px; "
+          f"linearizations histogram {np.bincount(lm.linearizations.cpu().numpy()).tolist()}; trials max "
+          f"{int(lm.iterations.max())}")
+    check(bool(lm.success.all()), f"all {b} planar poses converged")
+    check(tra <= PLANAR_TOL_M and rot <= PLANAR_TOL_DEG,
+          f"every planar pose within {PLANAR_TOL_M} m and {PLANAR_TOL_DEG} deg of the truth")
+    check(SCHEIM_RMS_PX[0] <= mean_rms <= SCHEIM_RMS_PX[1], f"planar pose mean RMS within {list(SCHEIM_RMS_PX)} px")
+    check(bool(cov_ok.all()) and bool(torch.isfinite(cov).all()), "every planar-pose covariance finite")
+    print(f"[smoke] planar pose B={b}: first call {first_s!r} s, warm median {med!r} s = {b / med!r} poses/s on "
+          f"{card} (warm calls {warm!r})")
+    k = PLANAR_PARITY_LANES
+    cpu = batched.planar_pose_batch(*(torch.as_tensor(a[:k]) for a in (obj, uv, kmtx)), options=PLANAR_OPTS)
+    lm_parity(lm, cpu[0], "planar pose", PLANAR_PARITY_COUNTERS)
+    return med
+
+
+def semidlt_solve(obj, uv):
+    """The semi-DLT cell's solve: the Zhang seed's K (skew zeroed: it stays
+    frozen), then optimize_intrinsics_semidlt_device."""
+    kmtx = intrinsics_linear.estimate_intrinsics(obj, uv).kmtx.clone()
+    kmtx[:, 4] = 0.0
+    return optimize_intrinsics_semidlt_device(obj, uv, kmtx, opts=SEMIDLT_OPTS)
+
+
+def semidlt_phase(dev, card):
+    """Semi-DLT on the bench.py set's 256 cameras (k3 = 0) through
+    optimize_intrinsics_semidlt_device on the card, seeded from
+    estimate_intrinsics (skew zeroed, as it stays frozen): every camera
+    converged, fx, fy, cx, cy within SEMIDLT_TOL_PX and k1, k2 within
+    SEMIDLT_TOL_K of the truth, the mean view RMS at the noise, covariance
+    finite, no K1 launch; first call and warm median; card/CPU on
+    SEMIDLT_PARITY_CAMERAS cameras. Returns the warm median in s."""
+    obj, uv, intr = make_problems(SEMIDLT_CAMERAS)
+    run = functools.partial(semidlt_solve, torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev))
+    zero_launches()
+    out, first_s, med, warm = timed_cell(run, dev)
+    check_no_launches("semi-DLT")
+    lm, kmtx, coeffs, _, view_errors, cov, cov_ok, _ = out
+    k_err = float((kmtx[:, :4].cpu() - torch.as_tensor(intr[:4])).abs().max())
+    d_err = (coeffs[:, :2].cpu() - torch.as_tensor(intr[5:7])).abs().amax(dim=0).tolist()
+    rms = float(torch.sqrt(torch.mean(view_errors**2)))
+    print(f"[smoke] semi-DLT B={SEMIDLT_CAMERAS}: fx, fy, cx, cy vs truth max {k_err!r} px; k1, k2 max {d_err!r}; "
+          f"mean view RMS {rms!r} px; linearizations histogram {np.bincount(lm.linearizations.cpu().numpy()).tolist()}"
+          f"; trials max {int(lm.iterations.max())}")
+    check(bool(lm.success.all()), f"all {SEMIDLT_CAMERAS} semi-DLT cameras converged")
+    check(k_err <= SEMIDLT_TOL_PX, f"fx, fy, cx, cy within {SEMIDLT_TOL_PX} px of the truth on every camera")
+    check(all(e <= t for e, t in zip(d_err, SEMIDLT_TOL_K)), f"k1, k2 within {SEMIDLT_TOL_K} of the truth")
+    check(SCHEIM_RMS_PX[0] <= rms <= SCHEIM_RMS_PX[1], f"semi-DLT mean view RMS within {list(SCHEIM_RMS_PX)} px")
+    check(bool(cov_ok.all()) and bool(torch.isfinite(cov).all()), "every semi-DLT covariance finite")
+    print(f"[smoke] semi-DLT B={SEMIDLT_CAMERAS}: first call {first_s!r} s, warm median {med!r} s = "
+          f"{SEMIDLT_CAMERAS / med!r} cameras/s on {card} (warm calls {warm!r})")
+    k = SEMIDLT_PARITY_CAMERAS
+    lm_parity(lm, semidlt_solve(torch.as_tensor(obj[:k]), torch.as_tensor(uv[:k]))[0], "semi-DLT")
+    return med
+
+
+def stereo_scheimpflug_phase(dev, card):
+    """The config-3 stereo set through the Scheimpflug camera (SOLVER_TILT,
+    p1 = p2 = 0) via extrinsics_batch(model_name=scheimpflug) on the card,
+    the cameras fixed at the truth (phased, grouped forward-mode
+    Jacobians): every rig converged, camera 1 within POSE_TOL of the truth,
+    no K1 launch; first call and warm median; card/CPU on
+    SOLVER_PARITY_RIGS rigs on the same schedule. Returns the warm median
+    in s."""
+    p = stereo_problems(STEREO_RIGS, tilt_tau=SOLVER_TILT)
+    keys = ("obj", "uv", "intr0", "c0", "r0")
+    run = functools.partial(extrinsics_batch, *(torch.as_tensor(p[k], device=dev) for k in keys),
+                            opts=STEREO_SCHEIM_OPTS, model_name=SCHEIM_NAME)
+    zero_launches()
+    out, first_s, med, warm = timed_cell(run, dev)
+    check_no_launches("the Scheimpflug stereo cell")
+    check_stereo(out, p["rel_gt"])
+    print(f"[smoke] Scheimpflug stereo B={STEREO_RIGS}: first call {first_s!r} s, warm median {med!r} s = "
+          f"{STEREO_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
+    k = SOLVER_PARITY_RIGS
+    cpu = extrinsics_batch(*(torch.as_tensor(p[key][:k]) for key in keys), opts=STEREO_SCHEIM_OPTS,
+                           model_name=SCHEIM_NAME, two_phase=STEREO_RIGS >= batched.TWO_PHASE_MIN_BATCH)
+    lm_parity(out[0], cpu[0], "Scheimpflug stereo")
+    return med
+
+
+def bundle_scheimpflug_phase(dev, card):
+    """The config-5 set through the Scheimpflug camera (SOLVER_TILT,
+    p1 = p2 = 0) via optimize_bundle_device(model=SCHEIMPFLUG) on the card,
+    the intrinsics fixed (forward-mode Jacobians): every rig converged,
+    g_se3_c within BUNDLE_TOL of the truth, no K1 launch; first call and
+    warm median; card/CPU on SOLVER_PARITY_RIGS rigs. Returns the warm
+    median in s."""
+    p = bundle_problems(BUNDLE_RIGS, tilt_tau=SOLVER_TILT)
+    run = functools.partial(optimize_bundle_device, *bundle_args(p, dev), model=SCHEIMPFLUG, opts=BUNDLE_OPTS)
+    zero_launches()
+    out, first_s, med, warm = timed_cell(run, dev)
+    check_no_launches("the Scheimpflug bundle cell")
+    check_bundle(out, p)
+    print(f"[smoke] Scheimpflug bundle B={BUNDLE_RIGS}: first call {first_s!r} s, warm median {med!r} s = "
+          f"{BUNDLE_RIGS / med!r} rigs/s on {card} (warm calls {warm!r})")
+    k = SOLVER_PARITY_RIGS
+    head = dict(p, **{key: p[key][:k] for key in ("obj", "uv", "bg", "g0", "b0")})
+    lm_parity(out[0], optimize_bundle_device(*bundle_args(head, "cpu"), model=SCHEIMPFLUG, opts=BUNDLE_OPTS)[0],
+              "Scheimpflug bundle")
+    return med
+
+
 def linescan_app_inputs(directory, views=6):
     """The linescan_calibration app's inputs: the committed example, a
     RANSAC variant of it, and a Scheimpflug input written from row 5S's
@@ -1792,6 +2009,10 @@ def main() -> int:
     scheimpflug_phase(dev, card, "2S")
     scheimpflug_phase(dev, card, "2T")
     linescan_app_phase(card)
+    planar_pose_phase(dev, card)
+    semidlt_phase(dev, card)
+    stereo_scheimpflug_phase(dev, card)
+    bundle_scheimpflug_phase(dev, card)
     print(f"[smoke] end-to-end phases done {time.perf_counter() - start!r} s after the start")
 
     # last, so that the profiler's device tracing (CUPTI) is off during the

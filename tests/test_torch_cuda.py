@@ -7,8 +7,12 @@ intrinsic_extrinsic_pipeline app on the card against the app on the CPU,
 the dense LM's users (homography_batch, handeye_batch, bundle_batch,
 the dense intrinsics solver, the homography and the four-stage
 bundle_pipeline apps) on the card against the CPU, and the line-scan slice
-(linescan_batch, linescan_ransac_batch, the linescan_calibration app) and
-the Scheimpflug intrinsics_batch on the card against the CPU.
+(linescan_batch, linescan_ransac_batch, the linescan_calibration app),
+the Scheimpflug intrinsics_batch, and the variable-projection and
+any-model solvers (the distortion fits, the linear intrinsics,
+planar_pose_batch, optimize_planar_pose, semi-DLT, the Scheimpflug
+extrinsics in each Jacobian mode and the Scheimpflug bundle) on the card
+against the CPU.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -24,14 +28,17 @@ import torch
 import chip_smoke
 from calibration_tpu_torch.apps import bundle_pipeline, homography as homography_app
 from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, linescan_calibration, planar_intrinsics
-from calibration_tpu_torch.models import pinhole
+from calibration_tpu_torch.models import distortion, pinhole
+from calibration_tpu_torch.models.registry import SCHEIMPFLUG
 from calibration_tpu_torch.ops import projection_residuals as pr
-from calibration_tpu_torch.ops import ransac, se3
+from calibration_tpu_torch.ops import intrinsics_linear, ransac, se3
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
+from calibration_tpu_torch.optim import optimize_bundle_device, optimize_extrinsics_device, optimize_planar_pose
+from calibration_tpu_torch.optim import optimize_intrinsics_semidlt, optimize_intrinsics_semidlt_device
 from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
-from calibration_tpu_torch.parallel import linescan_ransac_batch
+from calibration_tpu_torch.parallel import linescan_ransac_batch, planar_pose_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -408,3 +415,115 @@ def test_linescan_app_on_card_matches_cpu(cuda_device, tmp_path):
             assert linescan_calibration.main(["--input", str(path), "--output", str(out), "--device", device]) == 0
             arts.append(json.loads(out.read_text()))
         assert_reports_match(arts[1], arts[0])
+
+
+def test_distortion_fits_and_linear_intrinsics_on_card_match_cpu(cuda_device):
+    """On 16 views of the bench.py set: the masked distortion fit, its dual
+    and the inverse within 1e-9 of the CPU; the linear intrinsics and their
+    iteration within 1e-9 relative, the same ok."""
+    obj, uv, kmtx, poses = chip_smoke.planar_problems(2)
+    pts = np.concatenate([obj, np.zeros(obj.shape[:-1] + (1,))], -1)
+    pc = np.einsum("bij,bnj->bni", poses[:, :3, :3], pts) + poses[:, None, :3, 3]
+    xy = pc[..., :2] / pc[..., 2:]
+    mask = np.ones(xy.shape[:-1], bool)
+    mask[:, ::9] = False
+    args = (xy[:16], uv[:16], kmtx[:16])
+    for fn, kw in ((distortion.fit_distortion_full, {"mask": mask[:16]}), (distortion.fit_distortion_dual, {})):
+        gpu = fn(*(torch.as_tensor(a, device=cuda_device) for a in args), 2,
+                 **{k: torch.as_tensor(v, device=cuda_device) for k, v in kw.items()})
+        cpu = fn(*(torch.as_tensor(a) for a in args), 2, **{k: torch.as_tensor(v) for k, v in kw.items()})
+        for g, c in zip(gpu, cpu):
+            assert float((g.cpu().double() - c.double()).abs().max()) <= 1e-9 * max(1.0, float(c.double().abs().max()))
+    coeffs = torch.tensor(chip_smoke.make_problems(1)[2][[5, 6, 8, 9]])
+    assert float((distortion.invert_brown_conrady(coeffs.to(cuda_device)).cpu() - distortion.invert_brown_conrady(
+        coeffs)).abs().max()) <= 1e-9
+    for fn in (intrinsics_linear.estimate_intrinsics_linear, intrinsics_linear.estimate_intrinsics_linear_iterative):
+        gpu = fn(*(torch.as_tensor(a, device=cuda_device) for a in args[:2]))
+        cpu = fn(*(torch.as_tensor(a) for a in args[:2]))
+        assert torch.equal(gpu[-1].cpu(), cpu[-1])
+        for g, c in zip(gpu[:-1], cpu[:-1]):
+            assert float(((g.cpu() - c).abs() / c.abs().clamp(min=1.0)).max()) <= 1e-9
+
+
+def test_planar_pose_on_card_matches_cpu(cuda_device):
+    """32 views of the planar-pose cell through planar_pose_batch, and one
+    through optimize_planar_pose: the same linearizations and success (the
+    trials at the minimum are decided by roundoff: chip_smoke's
+    PLANAR_PARITY_COUNTERS), cost 1e-7 relative, poses 1e-9, covariance
+    1e-6 of its largest entry; no K1 launch."""
+    obj, uv, kmtx, _ = chip_smoke.planar_problems(4)
+    args = [a[:32] for a in (obj, uv, kmtx)]
+    before = dict(pr.launches)
+    gpu = planar_pose_batch(*(torch.as_tensor(a, device=cuda_device) for a in args))
+    cpu = planar_pose_batch(*(torch.as_tensor(a) for a in args))
+    assert pr.launches == before and bool(gpu[0].success.all())
+    for name in chip_smoke.PLANAR_PARITY_COUNTERS:
+        assert torch.equal(getattr(gpu[0], name).cpu(), getattr(cpu[0], name)), name
+    assert float(((gpu[0].cost.cpu() - cpu[0].cost).abs() / cpu[0].cost).max()) <= 1e-7
+    assert float((gpu[1].cpu() - cpu[1]).abs().max()) <= 1e-9
+    scale = cpu[3].abs().amax(dim=(-2, -1))
+    assert bool(((gpu[3].cpu() - cpu[3]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+    one = [torch.as_tensor(a[0]) for a in args]
+    host = [optimize_planar_pose(*(t.to(d) for t in one), init_pose=cpu[1][0].to(d)) for d in (cuda_device, "cpu")]
+    assert host[0].core.success and host[1].core.success
+    np.testing.assert_allclose(host[0].core.final_cost, host[1].core.final_cost, rtol=1e-7)
+
+
+def test_semidlt_on_card_matches_cpu(cuda_device):
+    """4 cameras of the semi-DLT cell through the device function, one
+    through the host wrapper: the same counters, cost 1e-7 relative, K
+    1e-9 relative, covariance 1e-6 of its largest entry."""
+    obj, uv, _ = chip_smoke.make_problems(4)
+
+    def solve(dev):
+        o, u = torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev)
+        kmtx = intrinsics_linear.estimate_intrinsics(o, u).kmtx.clone()
+        kmtx[:, 4] = 0.0
+        return optimize_intrinsics_semidlt_device(o, u, kmtx, opts=chip_smoke.SEMIDLT_OPTS), (o, u, kmtx)
+
+    (gpu, g_in), (cpu, c_in) = solve(cuda_device), solve("cpu")
+    assert bool(gpu[0].success.all())
+    _lm_equal(gpu[0], cpu[0])
+    assert float(((gpu[1].cpu() - cpu[1]).abs() / cpu[1].abs().clamp(min=1.0)).max()) <= 1e-9
+    scale = cpu[5].abs().amax(dim=(-2, -1))
+    assert bool(((gpu[5].cpu() - cpu[5]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+    host = [optimize_intrinsics_semidlt(*(t[0] for t in ins), opts=chip_smoke.SEMIDLT_OPTS) for ins in (g_in, c_in)]
+    assert host[0].core.iterations == host[1].core.iterations
+    np.testing.assert_allclose(host[0].core.final_cost, host[1].core.final_cost, rtol=1e-7)
+
+
+@pytest.mark.parametrize("solver,jac_mode", [("schur", "grouped"), ("schur", "full"), ("dense", "grouped")])
+def test_scheimpflug_extrinsics_on_card_matches_cpu(cuda_device, solver, jac_mode):
+    """8 rigs of the Scheimpflug stereo cell (the cameras fixed, as the
+    smoke solves it) with covariance on, in each Jacobian mode and the
+    dense solver: the same counters, cost 1e-7 relative, covariance 1e-6
+    of its largest entry; no K1 launch."""
+    p = chip_smoke.stereo_problems(8, tilt_tau=chip_smoke.SOLVER_TILT)
+    keys = ("obj", "uv", "intr0", "c0", "r0")
+    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=50), optimize_intrinsics=False)
+    before = dict(pr.launches)
+    gpu, cpu = (optimize_extrinsics_device(*(torch.as_tensor(p[k], device=d) for k in keys), model=SCHEIMPFLUG,
+                                           opts=opts, solver=solver, jac_mode=jac_mode) for d in (cuda_device, "cpu"))
+    assert pr.launches == before and bool(gpu[0].success.all())
+    _lm_equal(gpu[0], cpu[0])
+    scale = cpu[4].abs().amax(dim=(-2, -1))
+    assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
+
+
+def test_scheimpflug_extrinsics_batch_and_bundle_on_card_match_cpu(cuda_device):
+    """8 rigs each of the Scheimpflug stereo cell through extrinsics_batch
+    (phased, as the smoke runs it) and of the Scheimpflug bundle cell
+    through optimize_bundle_device (covariance on): the same counters,
+    cost 1e-7 relative."""
+    p = chip_smoke.stereo_problems(8, tilt_tau=chip_smoke.SOLVER_TILT)
+    keys = ("obj", "uv", "intr0", "c0", "r0")
+    gpu, cpu = (extrinsics_batch(*(torch.as_tensor(p[k], device=d) for k in keys), opts=chip_smoke.STEREO_SCHEIM_OPTS,
+                                 model_name=chip_smoke.SCHEIM_NAME, two_phase=True) for d in (cuda_device, "cpu"))
+    assert bool(gpu[0].success.all())
+    _lm_equal(gpu[0], cpu[0])
+    q = chip_smoke.bundle_problems(8, tilt_tau=chip_smoke.SOLVER_TILT)
+    opts = BundleOptions(core=OptimOptions(max_iterations=50))
+    gpu, cpu = (optimize_bundle_device(*chip_smoke.bundle_args(q, d), model=SCHEIMPFLUG, opts=opts)
+                for d in (cuda_device, "cpu"))
+    assert bool(gpu[0].success.all()) and bool(gpu[5].all())
+    _lm_equal(gpu[0], cpu[0])

@@ -4,9 +4,9 @@ binds every argument to the same parameter in the port. Parameters only
 the port has come after the reference's and are keyword-only. A value the
 port does not honour yet (a camera model a path does not take, a precision
 other than "f64", a device mesh, an unknown ``jac_mode``) raises
-``NotImplementedError`` ("not ported yet") before any work. The intrinsics
-and line-scan paths take the Scheimpflug model; the extrinsics and bundle
-solvers do not yet.
+``NotImplementedError`` ("not ported yet") before any work. The intrinsics,
+line-scan, extrinsics and bundle solvers take every registry model;
+bundle_batch takes the pinhole model only, as the reference's.
 
 The port's ``*_device`` functions keep a leading batch axis where the
 reference's take one problem: only names and order are compared."""
@@ -22,6 +22,7 @@ from calibration_tpu.models import distortion as jdist
 from calibration_tpu.models import pinhole as jpin
 from calibration_tpu.models import scheimpflug as jsch
 from calibration_tpu.models.registry import SCHEIMPFLUG
+from calibration_tpu.ops import intrinsics_linear as jlin
 from calibration_tpu.ops import linescan as jls
 from calibration_tpu.ops import planefit as jpf
 from calibration_tpu.ops import ransac as jransac
@@ -31,11 +32,14 @@ from calibration_tpu.optim import handeye as jhe
 from calibration_tpu.optim import homography as jhom
 from calibration_tpu.optim import intrinsics as jintr
 from calibration_tpu.optim import lm as jlm
+from calibration_tpu.optim import planarpose as jpp
+from calibration_tpu.optim import semidlt as jsd
 from calibration_tpu.parallel import batched as jbatched
 from calibration_tpu.pipeline.facades import linescan as jlsf
 from calibration_tpu_torch.models import distortion as tdist
 from calibration_tpu_torch.models import pinhole as tpin
 from calibration_tpu_torch.models import scheimpflug as tsch
+from calibration_tpu_torch.ops import intrinsics_linear as tlin
 from calibration_tpu_torch.ops import linescan as tls
 from calibration_tpu_torch.ops import planefit as tpf
 from calibration_tpu_torch.ops import ransac as transac
@@ -45,6 +49,8 @@ from calibration_tpu_torch.optim import handeye as the
 from calibration_tpu_torch.optim import homography as thom
 from calibration_tpu_torch.optim import intrinsics as tintr
 from calibration_tpu_torch.optim import lm as tlm
+from calibration_tpu_torch.optim import planarpose as tpp
+from calibration_tpu_torch.optim import semidlt as tsd
 from calibration_tpu_torch.parallel import batched as tbatched
 from calibration_tpu_torch.pipeline.facades import linescan as tlsf
 
@@ -97,6 +103,18 @@ PAIRS = {
     "scheimpflug.apply_intrinsics": (tsch, jsch),
     "scheimpflug.remove_intrinsics": (tsch, jsch),
     "LinescanCalibrationFacade.calibrate": (tlsf, jlsf),
+    "apply_distortion": (tdist, jdist),
+    "fit_distortion_full": (tdist, jdist),
+    "fit_distortion": (tdist, jdist),
+    "invert_brown_conrady": (tdist, jdist),
+    "fit_distortion_dual": (tdist, jdist),
+    "estimate_intrinsics_linear": (tlin, jlin),
+    "estimate_intrinsics_linear_iterative": (tlin, jlin),
+    "optimize_planar_pose_device": (tpp, jpp),
+    "optimize_planar_pose": (tpp, jpp),
+    "optimize_intrinsics_semidlt_device": (tsd, jsd),
+    "optimize_intrinsics_semidlt": (tsd, jsd),
+    "planar_pose_batch": (tbatched, jbatched),
 }
 
 
@@ -160,21 +178,21 @@ UNPORTED = {
     "intrinsics_host_mixed": (tintr.optimize_intrinsics, lambda: _intr_args(()), {"precision": "mixed"}),
     "linescan_batch_mesh": (tbatched.linescan_batch, _linescan_args, {"mesh": _mesh()}),
     "linescan_ransac_batch_mesh": (tbatched.linescan_ransac_batch, _linescan_args, {"mesh": _mesh()}),
-    "extrinsics_device_model": (text.optimize_extrinsics_device, _extr_args, {"model": SCHEIMPFLUG}),
     "extrinsics_device_jac_mode": (text.optimize_extrinsics_device, _extr_args, {"jac_mode": "blocked"}),
-    "extrinsics_host_model": (text.optimize_extrinsics, lambda: _extr_args(()), {"model": SCHEIMPFLUG}),
-    "bundle_device_model": (tbundle.optimize_bundle_device, _bundle_args, {"model": SCHEIMPFLUG}),
+    "extrinsics_device_jac_mode_model": (text.optimize_extrinsics_device, _extr_args,
+                                         {"jac_mode": "per_view", "model": SCHEIMPFLUG}),
     "bundle_device_mixed": (tbundle.optimize_bundle_device, _bundle_args, {"precision": "mixed"}),
-    "bundle_host_model": (tbundle.optimize_bundle, lambda: _bundle_args(()), {"model": SCHEIMPFLUG}),
+    "bundle_device_mixed_jac": (tbundle.optimize_bundle_device, _bundle_args, {"precision": "mixed_jac"}),
     "intrinsics_batch_mixed": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
     "intrinsics_batch_mesh": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
     "facade_batch_mixed": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
     "facade_batch_mesh": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
-    "extrinsics_batch_model": (tbatched.extrinsics_batch, _extr_args, {"model_name": SCHEIM}),
     "extrinsics_batch_mesh": (tbatched.extrinsics_batch, _extr_args, {"mesh": _mesh()}),
     "homography_batch_mesh": (tbatched.homography_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2)), {"mesh": _mesh()}),
     "handeye_batch_mesh": (tbatched.handeye_batch, lambda: (_z(1, 3, 4, 4), _z(1, 3, 4, 4)), {"mesh": _mesh()}),
     "bundle_batch_mesh": (tbatched.bundle_batch, _bundle_args, {"mesh": _mesh()}),
+    "planar_pose_batch_mesh": (tbatched.planar_pose_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2), _z(1, 5)),
+                               {"mesh": _mesh()}),
 }
 
 
@@ -261,3 +279,59 @@ def _scheimpflug_views():
     pc = torch.einsum("vij,nj->vni", poses[0, :, :3, :3], pts) + poses[0, :, None, :3, 3]
     obj = torch.as_tensor(np.broadcast_to(grid, (1, 4) + grid.shape).copy())
     return obj, scheimpflug.project(intr[0], pc)[None], intr, poses
+
+
+def _scheimpflug_rig_args():
+    """Noise-free (extrinsics args, bundle args) with a batch of one, from
+    the truth, through the port's Scheimpflug model: a two-camera rig
+    seeing the 4 views of ``_scheimpflug_views``, and a one-camera robot
+    cell (hand-eye and target poses the identity) with those views as its
+    observations."""
+    from calibration_tpu_torch.models import scheimpflug
+    from calibration_tpu_torch.ops import se3
+
+    obj, uv, intr, poses = _scheimpflug_views()
+    off = torch.eye(4, dtype=torch.float64)
+    off[:3, :3] = se3.exp_so3(torch.tensor([0.02, -0.3, 0.01], dtype=torch.float64))
+    off[:3, 3] = torch.tensor([-0.2, 0.0, 0.02], dtype=torch.float64)
+    pts = torch.cat([obj[0, 0], torch.zeros(obj.shape[2], 1, dtype=torch.float64)], -1)
+    cam1 = off @ poses[0]
+    uv1 = scheimpflug.project(intr[0], torch.einsum("vij,nj->vni", cam1[:, :3, :3], pts) + cam1[:, None, :3, 3])
+    extr = (torch.stack([obj[0], obj[0]], 1)[None], torch.stack([uv[0], uv1], 1)[None], intr.expand(2, 12)[None],
+            torch.stack([torch.eye(4, dtype=torch.float64), off])[None], poses)
+    bundle = (obj, uv, se3.se3_inverse(poses), torch.zeros((1, 4), dtype=torch.long), intr[:, None],
+              torch.eye(4, dtype=torch.float64)[None, None], torch.eye(4, dtype=torch.float64)[None])
+    return extr, bundle
+
+
+# the extrinsics and bundle solvers take every registry model (the
+# reference's spec object or its name); these calls raised "not ported
+# yet" before
+ANY_MODEL_TAKEN = {
+    "extrinsics_device_model": (text.optimize_extrinsics_device, {"model": SCHEIMPFLUG}),
+    "extrinsics_host_model": (text.optimize_extrinsics, {"model": SCHEIMPFLUG}),
+    "extrinsics_batch_model": (tbatched.extrinsics_batch, {"model_name": SCHEIM}),
+    "bundle_device_model": (tbundle.optimize_bundle_device, {"model": SCHEIMPFLUG}),
+    "bundle_host_model": (tbundle.optimize_bundle, {"model": "scheimpflug"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANY_MODEL_TAKEN))
+def test_scheimpflug_is_taken_by_extrinsics_and_bundle(case):
+    """From the truth, each entry point keeps the Scheimpflug cameras
+    (12 parameters) and the cost of noise-free data."""
+    fn, kwargs = ANY_MODEL_TAKEN[case]
+    extr, bundle = _scheimpflug_rig_args()
+    core = tintr.OptimOptions(max_iterations=5, compute_covariance=False)
+    if fn in (text.optimize_extrinsics_device, text.optimize_extrinsics, tbatched.extrinsics_batch):
+        opts = text.ExtrinsicOptions(core=core)
+        host = fn is text.optimize_extrinsics
+        out = fn(*(a[0] for a in extr) if host else extr, opts=opts, **kwargs)
+        cams, cost = (out.cameras, out.core.final_cost) if host else (out[1][0], float(out[0].cost[0]))
+    else:
+        opts = tbundle.BundleOptions(core=core)
+        host = fn is tbundle.optimize_bundle
+        out = fn(*(a[0] for a in bundle) if host else bundle, opts=opts, **kwargs)
+        cams, cost = (out.cameras, out.core.final_cost) if host else (out[1][0], float(out[0].cost[0]))
+    assert tuple(cams.shape) == ((2, 12) if "extrinsics" in case else (1, 12))
+    assert cost < 1e-16

@@ -1,7 +1,7 @@
 """CPU rehearsal of ``chip_smoke.py``'s app, stereo, pipeline, homography,
 hand-eye, bundle, four-stage pipeline, line-scan (5L, 5R, 5S), Scheimpflug
-intrinsics (2S, 2T) and line-scan app phases, which otherwise run only on
-the card: the same generators at a small size (4 sensors, 4 rigs, 4 or 64
+intrinsics (2S, 2T), line-scan app, planar-pose, semi-DLT and Scheimpflug
+stereo and bundle phases, which otherwise run only on the card: the same generators at a small size (4 sensors, 4 rigs, 4 or 64
 lanes), the apps and the solves on the CPU, and the phases' own checks, so
 a wrong path, shape or threshold shows here before a chip run.
 Also: the script refuses to run without a card, and outside the
@@ -246,16 +246,66 @@ def test_ransac_draws_do_not_depend_on_the_device():
     assert torch.equal(a, b) and a.device.type == "cpu"
 
 
+SOLVER_PHASES = {
+    "planar_pose": ("planar_pose_phase", (("PLANAR_CAMERAS", 2), ("PLANAR_PARITY_LANES", 4))),
+    "semidlt": ("semidlt_phase", (("SEMIDLT_CAMERAS", 2), ("SEMIDLT_PARITY_CAMERAS", 1))),
+    "stereo_scheimpflug": ("stereo_scheimpflug_phase", (("STEREO_RIGS", 2), ("SOLVER_PARITY_RIGS", 1))),
+    "bundle_scheimpflug": ("bundle_scheimpflug_phase", (("BUNDLE_RIGS", 2), ("SOLVER_PARITY_RIGS", 1))),
+}
+
+
+@pytest.mark.parametrize("phase", sorted(SOLVER_PHASES))
+def test_solver_phases_check_pass_on_cpu(monkeypatch, phase):
+    """The planar-pose (20 views), semi-DLT (2 cameras) and Scheimpflug
+    stereo and bundle (2 rigs) cells: every lane converged within the
+    truth bounds, no K1 launch, the parity on the first lanes against
+    themselves, the warm median back."""
+    name, sizes = SOLVER_PHASES[phase]
+    for attr, value in sizes + (("WARM_CALLS", 2),):
+        monkeypatch.setattr(chip_smoke, attr, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    assert getattr(chip_smoke, name)(torch.device("cpu"), "cpu") > 0
+
+
 @pytest.mark.parametrize("which", ["homography", "handeye", "bundle", "handeye_fleet", "linescan",
-                                   "linescan_scheimpflug", "linescan_outliers", "scheimpflug"])
+                                   "linescan_scheimpflug", "linescan_outliers", "scheimpflug", "planar_semidlt",
+                                   "stereo_scheimpflug", "bundle_scheimpflug"])
 def test_generators_restate_the_benchmark_sets(which):
     """chip_smoke's config-1, config-4 and config-5 sets, its pipeline
     fleet and its line-scan sets equal the JAX package's
     benchmarks/problems.py and benchmarks/pipeline_fleet.py ones (the fleet
     with its bundle section); its junk-pixel recipe and its Scheimpflug
-    intrinsics sets equal bench_all.py's (rows 5R / 5S, 2S / 2T). Asked of
-    a fresh interpreter: those modules set torch's default dtype."""
+    intrinsics sets equal bench_all.py's (rows 5R / 5S, 2S / 2T). The
+    planar-pose and semi-DLT cells are bench.py's set (k3 = 0; every view a
+    planar-pose lane, K at the truth) and the Scheimpflug stereo and bundle
+    cells the config-3 and config-5 sets rendered through the JAX package's
+    numpy Scheimpflug projection (tau = (0.06, -0.04), p1 = p2 = 0). Asked
+    of a fresh interpreter: those modules set torch's default dtype."""
+    scheimpflug_render = (
+        "intr12 = np.array([600.0, 610.0, 320.0, 240.0, 0.0, -0.12, 0.04, 0.0, 0.0, 0.0, 0.06, -0.04])\n"
+        "problems.np_project = lambda intr, pc: problems.np_project_scheimpflug(intr12, pc)\n"
+    )
     code = {
+        "planar_semidlt": (
+            "import bench\n"
+            "obj, uv, poses, intr = bench.make_problems(3, seed=7)\n"
+            "assert np.asarray(intr)[7] == 0.0\n"
+            "want = [obj.reshape(30, 88, 2), uv.reshape(30, 88, 2), np.tile(np.asarray(intr)[:5], (30, 1)),\n"
+            "        poses.reshape(30, 4, 4)]\n"
+            "got = list(chip_smoke.planar_problems(3))\n"
+            "want, got = want + [obj, uv, intr], got + list(chip_smoke.make_problems(3))\n"
+        ),
+        "stereo_scheimpflug": scheimpflug_render + (
+            "keys = ['obj', 'uv', 'c0', 'r0', 'rel_gt']\n"
+            "w, g = problems.stereo_problems(3), chip_smoke.stereo_problems(3, tilt_tau=(0.06, -0.04))\n"
+            "want, got = [w[k] for k in keys] + [intr12], [g[k] for k in keys] + [g['intr0'][0, 1]]\n"
+        ),
+        "bundle_scheimpflug": scheimpflug_render + (
+            "w = problems.bundle_problems(3, num_obs=6)\n"
+            "g = chip_smoke.bundle_problems(3, num_obs=6, tilt_tau=(0.06, -0.04))\n"
+            "keys = [k for k in sorted(w) if k != 'intr']\n"
+            "want, got = [w[k] for k in keys] + [intr12], [g[k] for k in keys] + [g['intr']]\n"
+        ),
         "linescan": "want, got = problems.linescan_problems(3, seed=23), chip_smoke.linescan_problems(3, seed=23)\n",
         "linescan_scheimpflug": (
             "want = problems.linescan_problems(3, views=4, seed=37, tilt_tau=(0.06, -0.04))\n"

@@ -7,8 +7,12 @@ bundle-pipeline-64 (``bundle_pipeline`` with it: intrinsics, hand-eye,
 bundle), linescan-b1024 (row 5L, ``linescan_batch``),
 linescan-ransac-b256 and linescan-scheimpflug-b256 (rows 5R and 5S,
 ``linescan_ransac_batch``), scheimpflug-b256 and scheimpflug-tilt-b256
-(rows 2S and 2T, ``intrinsics_batch`` with the Scheimpflug model), each
-with the data of ``chip_smoke.py``.
+(rows 2S and 2T, ``intrinsics_batch`` with the Scheimpflug model),
+planar-pose-b2560 (``planar_pose_batch``), semidlt-b256
+(``optimize_intrinsics_semidlt_device``), stereo-scheimpflug-b128
+(``extrinsics_batch`` with the Scheimpflug model) and
+bundle-scheimpflug-b128 (``optimize_bundle_device`` with it), each with
+the data of ``chip_smoke.py``.
 
     python3 tools/profile_torch_cells.py [--repeats 7] [--out DIR] [--cells a,b] [--sweeps a,b]
 
@@ -21,7 +25,12 @@ B .. Z Z .. A, with the median per cap. Then the A/B of the Scheimpflug
 per-view Jacobian (rows 2S and 2T): ``lm_schur.view_jacobian_fn``, one
 dual-number pass over the batch repeated pg + 6 times, against the port's
 other forward-mode idiom, a ``torch.func.vmap`` over (B, V) of ``jacfwd``
-(``vmap_jacfwd_view_jacobian_fn`` below), interleaved the same way. Then
+(``vmap_jacfwd_view_jacobian_fn`` below), interleaved the same way, and
+the A/B of the VarPro Jacobian (planar pose and semi-DLT, each module's
+``JACOBIAN``: one dual-number pass, ``lm.dual_jacobian_fn``, against
+``lm.tangent_jacobian``'s ``vmap(jacfwd)``), and of the manifold
+retraction (semi-DLT and the Scheimpflug stereo cell: runs of one block
+kind retracted together against block by block). Then
 each cell's warm wall times (host clock,
 synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
@@ -55,7 +64,11 @@ import dataclasses  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from calibration_tpu_torch.ops import ransac  # noqa: E402
-from calibration_tpu_torch.optim import lm_schur  # noqa: E402
+from calibration_tpu_torch.models.registry import SCHEIMPFLUG  # noqa: E402
+from calibration_tpu_torch.ops import se3  # noqa: E402
+from calibration_tpu_torch.optim import lm_schur, optimize_bundle_device, planarpose  # noqa: E402
+from calibration_tpu_torch.optim import semidlt as semidlt_mod  # noqa: E402
+from calibration_tpu_torch.optim.manifold import ProductManifold  # noqa: E402
 from calibration_tpu_torch.parallel import batched, bundle_batch, handeye_batch, homography_batch  # noqa: E402
 from calibration_tpu_torch.parallel import intrinsics_batch, linescan_batch, linescan_ransac_batch  # noqa: E402
 
@@ -179,13 +192,71 @@ def jacobian_ab(name, fn, repeats):
     print(f"[profile] {name} jacobian: max relative cost difference dual vs vmap-jacfwd {rel!r}")
 
 
+def per_block_retract(self, x, delta):
+    """``ProductManifold.retract`` block by block, as before the runs of
+    one kind were retracted together (the A/B's other arm)."""
+    parts = []
+    for kind, sa, st in self._segments:
+        if kind == "euclid":
+            parts.append(x[..., sa] + delta[..., st])
+        else:
+            qn = se3.quat_mul(x[..., sa], se3.exp_quat(delta[..., st]))
+            parts.append(qn / torch.linalg.norm(qn, dim=-1, keepdim=True))
+    return torch.cat(parts, dim=-1)
+
+
+def retract_ab(name, fn, repeats):
+    """Warm walls of ``fn`` with the run-wise and the per-block retract,
+    interleaved A B B A; prints the median per arm and the cost
+    difference between the two results."""
+    arms = {"runs": ProductManifold.retract, "per-block": per_block_retract}
+    times, costs = {k: [] for k in arms}, {}
+    try:
+        for key, impl in arms.items():
+            ProductManifold.retract = impl
+            costs[key] = fn()[0].cost  # first call
+        for order in range(repeats):
+            for key in (arms if order % 2 == 0 else list(arms)[::-1]):
+                ProductManifold.retract = arms[key]
+                times[key].append(synced(fn))
+    finally:
+        ProductManifold.retract = arms["runs"]
+    rel = float(((costs["runs"] - costs["per-block"]).abs() / costs["runs"].abs().clamp(min=1e-300)).max())
+    for key in arms:
+        print(f"[profile] {name} retract {key}: median {statistics.median(times[key])!r} s, all {times[key]!r}")
+    print(f"[profile] {name} retract: max relative cost difference runs vs per-block {rel!r}")
+
+
+def varpro_ab(name, fn, module, repeats):
+    """Warm walls of ``fn`` with ``module.JACOBIAN`` "dual" and "vmap",
+    interleaved A B B A; prints the median per arm and the cost difference
+    between the two results."""
+    modes = ("dual", "vmap")
+    times, costs = {k: [] for k in modes}, {}
+    saved = module.JACOBIAN
+    try:
+        for key in modes:
+            module.JACOBIAN = key
+            costs[key] = fn()[0].cost  # first call
+        for order in range(repeats):
+            for key in (modes if order % 2 == 0 else modes[::-1]):
+                module.JACOBIAN = key
+                times[key].append(synced(fn))
+    finally:
+        module.JACOBIAN = saved
+    rel = float(((costs["dual"] - costs["vmap"]).abs() / costs["dual"].abs().clamp(min=1e-300)).max())
+    for key in modes:
+        print(f"[profile] {name} VarPro jacobian {key}: median {statistics.median(times[key])!r} s, all {times[key]!r}")
+    print(f"[profile] {name} VarPro jacobian: max relative cost difference dual vs vmap {rel!r}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=7)
     parser.add_argument("--out", default=str(ROOT / "build" / "profile"))
     parser.add_argument("--cells", default="", help="comma-separated cell names (default all)")
     parser.add_argument("--sweeps", default="", help="comma-separated sweeps: homography, bundle, "
-                        "scheimpflug-fixed, scheimpflug-free, jacobian (default all)")
+                        "scheimpflug-fixed, scheimpflug-free, jacobian, varpro, retract (default all)")
     args = parser.parse_args()
     picked = lambda arg, name: not arg or name in arg.split(",")  # noqa: E731
     if not torch.cuda.is_available():
@@ -221,6 +292,19 @@ def main() -> int:
                                         model_name=chip_smoke.SCHEIM_NAME)
     free = dataclasses.replace(chip_smoke.scheimpflug_opts("2S"), fixed_distortion_indices=())
     scheim_free = functools.partial(scheim["2S"], opts=free)
+    planar = functools.partial(batched.planar_pose_batch,
+                               *on_card(chip_smoke.planar_problems(chip_smoke.PLANAR_CAMERAS)[:3]),
+                               options=chip_smoke.PLANAR_OPTS)
+    semidlt = functools.partial(chip_smoke.semidlt_solve,
+                                *on_card(chip_smoke.make_problems(chip_smoke.SEMIDLT_CAMERAS)[:2]))
+    stereo_p = chip_smoke.stereo_problems(chip_smoke.STEREO_RIGS, tilt_tau=chip_smoke.SOLVER_TILT)
+    stereo_s = functools.partial(chip_smoke.extrinsics_batch,
+                                 *on_card([stereo_p[k] for k in ("obj", "uv", "intr0", "c0", "r0")]),
+                                 opts=chip_smoke.STEREO_SCHEIM_OPTS, model_name=chip_smoke.SCHEIM_NAME)
+    bundle_s = functools.partial(
+        optimize_bundle_device,
+        *chip_smoke.bundle_args(chip_smoke.bundle_problems(chip_smoke.BUNDLE_RIGS, tilt_tau=chip_smoke.SOLVER_TILT), dev),
+        model=SCHEIMPFLUG, opts=chip_smoke.BUNDLE_OPTS)
 
     # the cap sweeps first, before any profiler has run in this process
     for name, label, fn, attr, caps in (
@@ -236,6 +320,12 @@ def main() -> int:
     if picked(args.sweeps, "jacobian"):
         for row in ("2S", "2T"):
             jacobian_ab(f"Scheimpflug {row} B={chip_smoke.SCHEIM_RIGS}", scheim[row], args.repeats)
+    if picked(args.sweeps, "varpro"):
+        varpro_ab(f"planar pose B={10 * chip_smoke.PLANAR_CAMERAS}", planar, planarpose, args.repeats)
+        varpro_ab(f"semi-DLT B={chip_smoke.SEMIDLT_CAMERAS}", semidlt, semidlt_mod, max(3, args.repeats // 2))
+    if picked(args.sweeps, "retract"):
+        retract_ab(f"semi-DLT B={chip_smoke.SEMIDLT_CAMERAS}", semidlt, max(3, args.repeats // 2))
+        retract_ab(f"Scheimpflug stereo B={chip_smoke.STEREO_RIGS}", stereo_s, args.repeats)
 
     with tempfile.TemporaryDirectory() as tmp:
         fleet = chip_smoke.write_handeye_fleet(Path(tmp), chip_smoke.HE_PIPELINE_RIGS)
@@ -255,6 +345,8 @@ def main() -> int:
             ("bundle-pipeline-64", functools.partial(pipeline, fleet["input_path"])),
             ("linescan-b1024", line), ("linescan-ransac-b256", line_r), ("linescan-scheimpflug-b256", line_s),
             ("scheimpflug-b256", scheim["2S"]), ("scheimpflug-tilt-b256", scheim["2T"]),
+            ("planar-pose-b2560", planar), ("semidlt-b256", semidlt), ("stereo-scheimpflug-b128", stereo_s),
+            ("bundle-scheimpflug-b128", bundle_s),
         ) if picked(args.cells, name)]
         # every timed call before the first profiler (it slows later launches)
         for name, fn in cells:
