@@ -11,8 +11,10 @@ package cannot be imported without JAX. Differences in idiom:
 - ``lax.while_loop`` is a Python loop over batched tensors with per-lane
   masks, ``lax.cond`` a host decision;
 - every function works on the device and dtype of the tensors it is given.
-  Nothing sets a global default dtype; the solvers run in float64, as the
-  reference does.
+  Nothing sets a global default dtype; the solvers run in float64, or in
+  the reference's mixed precisions on request, as the reference does;
+- a device mesh (``parallel.make_mesh``) is a list of torch devices, each
+  shard of a batch solved on its own host thread.
 
 The one TPU kernel of the reference (``ops/pallas_kernels.py``) is a CUDA
 kernel here (``csrc/projection_residuals.cu``), built with nvcc on first use

@@ -108,7 +108,7 @@ def bundle_pipeline_config(cfg):
     ])
 
 
-def motion_pairs(pairs, device="cpu") -> MotionPairs:
+def motion_pairs(pairs, device) -> MotionPairs:
     """The reference's ``MotionPairs`` (any leading dims) -> the port's,
     float64 on ``device``."""
     return MotionPairs(*(to_tensor(a, device) for a in pairs))

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+_load_lock = threading.Lock()  # the shards of a mesh may all load it at once
 
 
 def _nvcc() -> str:
@@ -94,10 +96,15 @@ def build() -> Path:
     return compile_once(_nvcc(), NVCC_FLAGS, _sources(), library_path())
 
 
-@functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every launcher's
-    signature declared."""
+    signature declared; once per process."""
+    with _load_lock:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for fn in (lib.projection_residuals_launch, lib.projection_rms_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

@@ -26,6 +26,11 @@ def matrix(k):
     )
 
 
+def from_matrix(m):
+    """(..., 3, 3) -> (..., 5) [fx, fy, cx, cy, skew]."""
+    return torch.stack([m[..., 0, 0], m[..., 1, 1], m[..., 0, 2], m[..., 1, 2], m[..., 0, 1]], dim=-1)
+
+
 def normalize(k, pixel):
     """Pixel -> normalized coordinates. k: (..., 5); pixel: (..., 2)."""
     y = (pixel[..., 1] - k[..., 3]) / k[..., 1]

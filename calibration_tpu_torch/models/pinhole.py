@@ -17,6 +17,14 @@ NUM_DIST_COEFFS = 5
 IDX_FX, IDX_FY, IDX_SKEW = 0, 1, 4
 
 
+def kmtx_of(intr):
+    return intr[..., :5]
+
+
+def dist_of(intr):
+    return intr[..., 5:]
+
+
 def pack(kmtx, coeffs):
     """The flat 10-vector from K (..., 5) and coefficients [k.., p1, p2]
     (..., D), D <= 5: zeros go between the radial and tangential terms."""
@@ -27,6 +35,16 @@ def pack(kmtx, coeffs):
         zeros = coeffs.new_zeros(coeffs.shape[:-1] + (3 - nrad,))
         coeffs = torch.cat([coeffs[..., :nrad], zeros, coeffs[..., nrad:]], dim=-1)
     return torch.cat([kmtx, coeffs.to(kmtx.dtype)], dim=-1)
+
+
+def distort(intr, xy):
+    """Normalized point -> distorted normalized point."""
+    return dist.apply_distortion(xy, dist_of(intr))
+
+
+def undistort_pt(intr, xy):
+    """Distorted normalized point -> normalized point."""
+    return dist.undistort(xy, dist_of(intr))
 
 
 def apply_intrinsics(intr, pixel):

@@ -70,6 +70,13 @@ def spd_inverse(a):
     return torch.cholesky_solve(eye, cholesky(a))
 
 
+def solve_llsq(a, b):
+    """Least-squares solution x (..., N) of a (..., M, N) x = b (..., M),
+    by ``torch.linalg.lstsq`` (the minimum-norm one on the CPU; on CUDA a
+    QR solve, which needs full column rank)."""
+    return torch.linalg.lstsq(a, b[..., None]).solution[..., 0]
+
+
 def ridge_llsq(a, b, lam: float = 1e-10):
     """(A^T A + lam I)^-1 A^T b via Cholesky. a: (..., M, N); b: (..., M)."""
     n = a.shape[-1]
@@ -129,3 +136,7 @@ def smallest_singular_vector(a, via_gram: bool = True):
         return vecs[..., :, 0]
     _, _, vt = svd(a)
     return vt[..., -1, :]
+
+
+def min_singular_value(a):
+    return torch.linalg.svdvals(a)[..., -1]

@@ -67,3 +67,12 @@ def pose_from_homography_pixel(kmtx, hmtx):
     r3 = torch.linalg.cross(r1, r2)
     rot = se3.project_to_so3(torch.stack([r1, r2, r3], dim=-1))
     return se3.make_se3(rot, scale[..., None] * hs[..., :, 2]), scale, cond, ok
+
+
+def homography_consistency_fro(kmtx, pose, hmtx):
+    """Relative Frobenius mismatch between K [r1 r2 t] and H; inf where H
+    is zero."""
+    rt = torch.stack([pose[..., :3, 0], pose[..., :3, 1], pose[..., :3, 3]], dim=-1)
+    num = torch.linalg.norm(cm.matrix(kmtx) @ rt - hmtx, dim=(-2, -1))
+    den = torch.linalg.norm(hmtx, dim=(-2, -1))
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), torch.inf)

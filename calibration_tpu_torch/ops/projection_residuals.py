@@ -25,12 +25,14 @@ mode, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from ..kernels import _build
 
 launches = {"residuals": 0, "rms": 0}
+_launches_lock = threading.Lock()  # a mesh launches from one thread per shard
 
 _SCALARS = {torch.float32: 0, torch.float64: 1}
 _MASKS = {torch.bool: 0, torch.uint8: 0, torch.float32: 1, torch.float64: 2}
@@ -174,7 +176,8 @@ def _launch(mode: str, views, out) -> None:
         err = fn(ctypes.addressof(args), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"projection kernel ({mode} mode) launch failed: CUDA error {err}")
-    launches[mode] += 1
+    with _launches_lock:
+        launches[mode] += 1
 
 
 def projection_residuals_f32(rot, tra, intr, obj_xy, img_uv, mask):

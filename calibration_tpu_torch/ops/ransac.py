@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -40,6 +41,7 @@ from . import homography as H
 from . import planefit
 
 rounds: collections.Counter = collections.Counter()
+_rounds_lock = threading.Lock()  # a mesh runs one thread per shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +131,8 @@ def _run_round(r, data, mask, fit_fn, residual_fn, degenerate_fn, k_min, round_s
     (score, model, inliers, rms, count)."""
     lanes, n = mask.shape
     device = mask.device
-    rounds[device.type] += 1
+    with _rounds_lock:
+        rounds[device.type] += 1
     g = round_noise(options.seed, r, (round_size, n), device)
     logp = torch.where(mask, 0.0, -torch.inf).to(torch.float64)
     idx = torch.topk(g[None] + logp[:, None, :], k_min, dim=-1).indices  # (L, H, k)

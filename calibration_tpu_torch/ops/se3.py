@@ -150,6 +150,10 @@ def make_se3(r, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def se3_identity(dtype=torch.float64, *, device=None):
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def rot(m):
     return m[..., :3, :3]
 
@@ -207,3 +211,12 @@ def average_isometries(poses, mask=None):
     q_avg = torch.where(nrm > _EPS, q_sum / torch.clamp(nrm, min=_EPS), ident)
     t_avg = torch.sum(t * mask[..., None], dim=-2) / denom[..., None]
     return make_se3(quat_to_rotmat(q_avg), t_avg)
+
+
+def pose_to_array(m):
+    """SE(3) -> pose6 [axis-angle, t]."""
+    return se3_log(m)
+
+
+def array_to_pose(p6):
+    return se3_exp(p6)

@@ -20,6 +20,7 @@ The dense ``lm_core`` solves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ from ..models import pinhole
 from ..models.registry import PINHOLE, SPECS
 from ..ops import se3
 from . import blocks, lm
-from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
+from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported, check_precision
 from .manifold import ProductManifold, euclid, quat
 
 # the camera models the bundle solvers take (check_ported): every registry
@@ -182,7 +183,10 @@ def optimize_bundle_device(
     gripper poses; cam_idx: (B, O) int; init_intrs: (B, C, pc);
     init_g_se3_c: (B, C, 4, 4); init_b_se3_t: (B, 4, 4); mask: (B, O, N).
     ``model``: any registry model (``MODELS``), a spec or its name;
-    ``precision`` "f64" (``check_ported``). analytic_jac: the analytic
+    ``precision`` "f64" or "mixed" (a float32 LM, at most 30 iterations
+    to epsilon max(1e-5, epsilon), then the float64 solve from its result;
+    the reference runs plain float64 for "mixed_jac", silently, the port
+    refuses it). analytic_jac: the analytic
     pinhole Jacobian (the default), or False for forward-mode autodiff,
     which every other model uses.
 
@@ -190,7 +194,8 @@ def optimize_bundle_device(
     (B, 4, 4), cov (B, n, n), cov_ok (B,)) with n = C*pc + 7C + 7; with
     covariance off, cov is zero and cov_ok False.
     """
-    model = check_ported(model, precision, models=MODELS)
+    model = check_ported(model, models=MODELS)
+    check_precision(precision, ("f64", "mixed"))
     opts = opts or BundleOptions()
     b, o, n = obj_xy.shape[0], obj_xy.shape[1], obj_xy.shape[2]
     c = init_intrs.shape[1]
@@ -217,10 +222,17 @@ def optimize_bundle_device(
         return _residual_jac_pinhole(x, *d, pc, c)
 
     jac = jac_fn if analytic_jac and model.name == PINHOLE.name else None
-    out = lm.lm_core(
-        res_fn, x0, manifold, data=data, options=opts.core, free_mask=free, block_ids=block_ids,
-        num_blocks=o, lower=lower, jac_fn=jac,
+    solve = functools.partial(
+        lm.lm_core, res_fn, manifold=manifold, free_mask=free, block_ids=block_ids, num_blocks=o, jac_fn=jac
     )
+    if precision == "mixed":
+        f32 = torch.float32
+        coarse = dataclasses.replace(
+            opts.core, epsilon=max(1e-5, opts.core.epsilon), max_iterations=min(30, opts.core.max_iterations)
+        )
+        data32 = tuple(d.to(f32) if d.is_floating_point() else d for d in data)
+        x0 = solve(x0.to(f32), data=data32, options=coarse, lower=lower.to(f32)).x.to(dtype)
+    out = solve(x0, data=data, options=opts.core, lower=lower)
     if opts.core.compute_covariance:
         cov, cov_ok = lm.covariance(
             res_fn, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=o,

@@ -3,7 +3,7 @@ include/calib/estimation/optim/optimize.h).
 
 A copy of ``calibration_tpu/optim/core.py``, which is JAX-free but cannot be
 imported without importing JAX (``calibration_tpu/__init__.py`` imports it),
-plus ``check_ported``.
+plus ``check_ported`` and ``check_precision``.
 
 ``OptimOptions`` keeps the reference's field names and defaults so JSON
 configs round-trip; the ``optimizer`` enum is accepted for compatibility but
@@ -66,22 +66,25 @@ class OptimResult:
     initial_cost: float = 0.0
 
 
-def check_ported(model=None, precision: str = "f64", mesh=None, models=("pinhole_brown_conrady",)):
+def check_ported(model=None, models=("pinhole_brown_conrady",)):
     """The port takes the reference's parameters and honours, per caller,
     the camera models named in ``models`` (a model given as a spec or a
-    name), ``precision="f64"`` and ``mesh=None``; any other value raises
-    ``NotImplementedError`` (not ported yet). Returns the port's spec of
-    ``model`` (pinhole when it is None)."""
+    name); any other model raises ``NotImplementedError`` (not ported yet
+    on that path). Returns the port's spec of ``model`` (pinhole when it is
+    None)."""
     from ..models.registry import PINHOLE, get_model
 
     spec = PINHOLE if model is None else get_model(getattr(model, "name", model))
     if spec.name not in models:
         raise NotImplementedError(f"Camera model '{spec.name}' is not ported yet on this path")
-    if precision != "f64":
-        raise NotImplementedError(f"precision '{precision}' is not ported yet (f64 only)")
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet")
     return spec
+
+
+def check_precision(precision: str, precisions: tuple) -> None:
+    """Raise ``ValueError`` unless ``precision`` is one of the
+    ``precisions`` a path takes."""
+    if precision not in precisions:
+        raise ValueError(f"precision '{precision}' is not taken here ({' | '.join(precisions)})")
 
 
 def brief_report(result: "OptimResult") -> str:

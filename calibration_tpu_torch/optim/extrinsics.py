@@ -163,7 +163,7 @@ def _view_residual_jac_grouped(xg, vq, vt, obj, uv, mask, pc, c, model=PINHOLE):
     def rep(a):  # (B, ...) -> (k * B, ...), copy j carries column j
         return a.expand((k,) + a.shape).reshape((k * a.shape[0],) + a.shape[1:])
 
-    with fwAD.dual_level():
+    with lm.dual_level():
         xr = g_manifold.retract(rep(xg), fwAD.make_dual(torch.zeros_like(tan_g), tan_g))
         q_new, t_new = lm_schur._retract_views(rep(vq), rep(vt), fwAD.make_dual(torch.zeros_like(tan_v), tan_v))
         r = _view_residual(xr, q_new, t_new, rep(obj), rep(uv), rep(mask), pc, c, model)

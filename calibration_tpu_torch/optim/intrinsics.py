@@ -1,8 +1,9 @@
 """Joint intrinsics + per-view pose refinement, generic over the camera
 model and batched over cameras (port of
-``calibration_tpu/optim/intrinsics.py``: ``optimize_intrinsics_device`` at
-float64 with the Schur or the dense solver, ``intrinsics_covariance_device``,
-and the host wrapper ``optimize_intrinsics``).
+``calibration_tpu/optim/intrinsics.py``: ``optimize_intrinsics_device``
+with the Schur or the dense solver, at float64 or a mixed precision,
+``intrinsics_covariance_device``, and the host wrapper
+``optimize_intrinsics``).
 
 Parameter layout per camera: [intr(pc), quat_0..quat_V, t_0..t_V], the
 reference's IntrinsicBlocks order. One Huber block per view. fx, fy get a
@@ -27,7 +28,7 @@ from ..models.camera_matrix import CalibrationBounds
 from ..models.registry import PINHOLE, SCHEIMPFLUG
 from ..ops import se3
 from . import blocks, lm, lm_schur
-from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
+from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported, check_precision
 from .manifold import ProductManifold, euclid, quat
 
 
@@ -35,8 +36,9 @@ from .manifold import ProductManifold, euclid, quat
 class IntrinsicsOptimOptions:
     """The reference's IntrinsicsOptimOptions, field for field and in its
     order, so JSON configs and reports (which write positional ``field_N``
-    keys) match. ``bounds`` and ``mixed_coarse_epsilon`` are carried, not
-    read: the float64 Schur solve reads neither, as in the reference."""
+    keys) match. ``bounds`` is carried, not read, as in the reference;
+    ``mixed_coarse_epsilon`` is the float32 phase's tolerance under the
+    mixed precisions."""
 
     core: OptimOptions = dataclasses.field(default_factory=OptimOptions)
     num_radial: int = 2
@@ -53,6 +55,12 @@ def make_manifold(pc: int, num_views: int) -> ProductManifold:
 
 # the camera models the intrinsics solvers take (check_ported)
 MODELS = (PINHOLE.name, SCHEIMPFLUG.name)
+# the precisions each solver takes (check_precision): "mixed" runs a
+# float32 LM (at most 30 iterations, epsilon at least mixed_coarse_epsilon),
+# then the float64 solve from its result; "mixed_jac", Schur only, runs
+# that first phase in float64 with the Jacobian and its grams in float32.
+# (The reference's dense solve runs plain float64 for "mixed_jac", silently.)
+PRECISIONS = {"schur": ("f64", "mixed", "mixed_jac"), "dense": ("f64", "mixed")}
 
 
 def reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask, model=PINHOLE):
@@ -197,8 +205,9 @@ def optimize_intrinsics_device(
     obj_xy/img_uv: (B, V, N, 2); init_intr: (B, pc); init_poses:
     (B, V, 4, 4); mask: (B, V, N); view_valid: optional (B, V) (invalid
     views get zero residuals and frozen pose blocks). ``model`` is a
-    registry model or its name, pinhole or Scheimpflug, and ``precision``
-    "f64" (``check_ported``). ``analytic_jac`` is accepted for any value:
+    registry model or its name, pinhole or Scheimpflug (``check_ported``);
+    ``precision`` one of ``PRECISIONS[solver]``. ``analytic_jac`` is
+    accepted for any value:
     pinhole's analytic Jacobian equals the reference's jacfwd to 1e-10, and
     every other model is differentiated by forward-mode autodiff, as in the
     reference.
@@ -211,7 +220,10 @@ def optimize_intrinsics_device(
     Returns (LMOutput, intr (B, pc), poses (B, V, 4, 4), view_errors (B, V),
     cov (B, pc+7V, pc+7V), cov_ok (B,)).
     """
-    model = check_ported(model, precision, models=MODELS)
+    model = check_ported(model, models=MODELS)
+    if solver not in PRECISIONS:
+        raise ValueError(f"unknown solver '{solver}'")
+    check_precision(precision, PRECISIONS[solver])
     opts = opts or IntrinsicsOptimOptions()
     b, v = obj_xy.shape[0], obj_xy.shape[1]
     pc = model.param_count
@@ -231,16 +243,22 @@ def optimize_intrinsics_device(
     lower_g[model.idx_fx] = 0.0
     lower_g[model.idx_fy] = 0.0
     if solver == "dense":
-        return _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model)
-    if solver != "schur":
-        raise ValueError(f"unknown solver '{solver}'")
+        return _optimize_dense(
+            obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model, precision
+        )
 
     view_data = (obj_xy, img_uv, mask)
     view_fns = _view_functions(model)
-    sout = lm_schur.lm_core_schur(
-        *view_fns, init_intr, quats, trans, view_data,
-        options=opts.core, g_free=free[:, :pc], view_valid=view_valid, lower_g=lower_g,
+    schur = functools.partial(
+        lm_schur.lm_core_schur, *view_fns, g_free=free[:, :pc], view_valid=view_valid, lower_g=lower_g
     )
+    if precision == "mixed_jac":
+        s32 = schur(init_intr, quats, trans, view_data, options=_coarse(opts), jac_dtype=torch.float32)
+        init_intr, quats, trans = s32.xg, s32.quats, s32.trans
+    elif precision == "mixed":
+        s32 = schur(*_f32(init_intr, quats, trans), _f32(*view_data), options=_coarse(opts))
+        init_intr, quats, trans = (t.to(dtype) for t in (s32.xg, s32.quats, s32.trans))
+    sout = schur(init_intr, quats, trans, view_data, options=opts.core)
     out = sout.as_lm_output(blocks.pack_intr_quats_trans)
     n_amb = pc + 7 * v
     if opts.core.compute_covariance:
@@ -259,13 +277,25 @@ def optimize_intrinsics_device(
     return out, sout.xg, poses, view_errors, cov, cov_ok
 
 
+def _coarse(opts: IntrinsicsOptimOptions) -> OptimOptions:
+    """The float32 phase's options under a mixed precision."""
+    return dataclasses.replace(
+        opts.core, epsilon=max(opts.mixed_coarse_epsilon, opts.core.epsilon),
+        max_iterations=min(30, opts.core.max_iterations),
+    )
+
+
+def _f32(*tensors) -> tuple:
+    return tuple(t.to(torch.float32) for t in tensors)
+
+
 def _view_errors(intr, quats, trans, obj_xy, img_uv, mask, model):
     r = reproject_residuals(intr, quats, trans, obj_xy, img_uv, mask, model)
     cnt = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
     return torch.sqrt(torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt))
 
 
-def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model):
+def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, lower_g, manifold, model, precision):
     """``optimize_intrinsics_device`` with solver="dense"."""
     b, v, n = obj_xy.shape[:3]
     pc = init_intr.shape[-1]
@@ -273,10 +303,11 @@ def _optimize_dense(obj_xy, img_uv, init_intr, quats, trans, mask, opts, free, l
     block_ids = np.repeat(np.arange(v), 2 * n)
     data = (obj_xy, img_uv, mask)
     res = functools.partial(_residual_flat, model=model)
-    out = lm.lm_core(
-        res, blocks.pack_intr_quats_trans(init_intr, quats, trans), manifold, data=data,
-        options=opts.core, free_mask=free, block_ids=block_ids, num_blocks=v, lower=lower,
-    )
+    dense = functools.partial(lm.lm_core, res, manifold=manifold, free_mask=free, block_ids=block_ids, num_blocks=v)
+    x0 = blocks.pack_intr_quats_trans(init_intr, quats, trans)
+    if precision == "mixed":
+        x0 = dense(*_f32(x0), data=_f32(*data), options=_coarse(opts), lower=lower.to(torch.float32)).x.to(x0.dtype)
+    out = dense(x0, data=data, options=opts.core, lower=lower)
     if opts.core.compute_covariance:
         cov, cov_ok = lm.covariance(
             res, out.x, manifold, data=data, free_mask=free, block_ids=block_ids, num_blocks=v,

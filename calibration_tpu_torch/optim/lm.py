@@ -20,6 +20,8 @@ flag per trial to decide whether any lane is still active.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +38,20 @@ from .manifold import ProductManifold
 _MU_INIT = 1e-6
 _MU_MIN = 1e-32
 _MU_MAX = 1e32
+
+# PyTorch keeps forward-mode AD levels per process, not per thread: two
+# threads inside ``forward_ad.dual_level`` (or ``torch.func.jacfwd``, which
+# enters one) at once break each other's levels. A mesh solves each shard
+# on a thread of its own, so every forward-mode Jacobian of the port holds
+# this lock; the rest of a solve runs unserialised.
+FORWARD_AD_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def dual_level():
+    """``torch.autograd.forward_ad.dual_level`` under ``FORWARD_AD_LOCK``."""
+    with FORWARD_AD_LOCK, fwAD.dual_level():
+        yield
 
 
 class LMOutput(NamedTuple):
@@ -103,7 +119,8 @@ def tangent_jacobian(residual_fn: Callable, manifold: ProductManifold, x, data=(
         return r, r
 
     zero = torch.zeros(x.shape[:-1] + (manifold.tangent_dim,), dtype=x.dtype, device=x.device)
-    jac, r = torch.func.vmap(torch.func.jacfwd(lane, has_aux=True))(zero, x, *bounds, *data)
+    with FORWARD_AD_LOCK:
+        jac, r = torch.func.vmap(torch.func.jacfwd(lane, has_aux=True))(zero, x, *bounds, *data)
     return r, jac
 
 
@@ -122,7 +139,7 @@ def dual_jacobian_fn(residual_fn: Callable, manifold: ProductManifold, lower=Non
         def rep(a):  # (B, ...) -> (t * B, ...), copy c carries column c
             return a.expand((t,) + a.shape).reshape((t * a.shape[0],) + a.shape[1:])
 
-        with fwAD.dual_level():
+        with dual_level():
             d = fwAD.make_dual(x.new_zeros((t * b, t)), eye[:, None, :].expand(t, b, t).reshape(t * b, t))
             xr = manifold.retract(rep(x), d)
             if lower is not None:
@@ -153,7 +170,22 @@ def _tan_free(manifold: ProductManifold, free_mask, b: int, dtype, device):
     return mask.to(dtype).expand(b, manifold.tangent_dim)
 
 
-def lm_core(
+class LMState(NamedTuple):
+    """The dense LM between linearizations, batched: every field has a
+    leading problem axis."""
+
+    x: torch.Tensor  # ambient parameters
+    mu: torch.Tensor  # damping
+    nu: torch.Tensor  # damping growth factor
+    cost: torch.Tensor
+    it: torch.Tensor  # trials: accepted steps + rejected re-solves
+    done: torch.Tensor
+    termination: torch.Tensor  # TerminationType code
+    grad_max: torch.Tensor  # at the last linearization
+    lin: torch.Tensor  # linearizations
+
+
+def make_lm_step(
     residual_fn: Callable,
     x0,
     manifold: ProductManifold,
@@ -166,25 +198,18 @@ def lm_core(
     lower=None,
     upper=None,
     jac_fn: Optional[Callable] = None,
-) -> LMOutput:
-    """Minimize 0.5 * sum rho(|r|^2) over the manifold, for B problems.
+) -> tuple[LMState, Callable, Callable]:
+    """One LM iteration as a function ``LMState -> LMState``.
 
-    Args:
-      residual_fn: (x (B, a), *data) -> (B, m) residuals (masked rows
-        zeroed by the caller).
-      x0: (B, a) initial ambient parameters.
-      manifold: parameter-block structure of one problem.
-      data: tuple of (B, ...) tensors passed to residual_fn and jac_fn.
-      free_mask: optional (a,) or (B, a) bool; False coordinates are frozen.
-      block_ids: optional (m,) robust-loss block id per residual row (numpy
-        or tensor, shared by the lanes); None is one block when
-        huber_delta > 0.
-      num_blocks: count of robust-loss blocks.
-      lower/upper: optional (a,) or (B, a) box bounds, enforced by
-        projection after each retraction.
-      jac_fn: optional analytic tangent Jacobian, (x, *data) -> (B, m, t);
-        it must equal ``tangent_jacobian`` of the residual. None ->
-        forward-mode autodiff.
+    Returns (init_state, step, cond): ``lm_core`` runs ``step`` while any
+    lane of ``cond(state)`` (B,) is true; a profiling caller may step it
+    itself (``utils.profiling.lm_cost_trace``) and see the same
+    trajectory. One step is one LINEARIZATION at the current iterate and
+    its inner damping-retry loop, which re-solves the cached system with a
+    larger mu after each rejected trial, for the lanes where ``cond`` holds;
+    every other lane keeps every field.
+
+    Args: see ``lm_core``.
     """
     eps = options.epsilon
     huber = options.huber_delta
@@ -212,8 +237,8 @@ def lm_core(
             return residuals(x), jac_fn(x, *data)
         return tangent_jacobian(residual_fn, manifold, x, data, lo, up)
 
-    x = clip_x(x0)
-    r = residuals(x)
+    x_init = clip_x(x0)
+    r = residuals(x_init)
     blocks = _loss_blocks(r.shape[-1], block_ids, num_blocks, device)
     nb = num_blocks if block_ids is not None else 1
 
@@ -228,32 +253,26 @@ def lm_core(
             return r * sw, jac * sw[..., None]
         return r, jac
 
-    cost = cost_of(r)
-    cost0 = cost
-    mu = torch.full((b,), _MU_INIT, dtype=dtype, device=device)
-    nu = torch.full((b,), 2.0, dtype=dtype, device=device)
-    it = torch.zeros((b,), dtype=torch.int64, device=device)
-    lin = torch.zeros_like(it)
-    termination = torch.zeros_like(it)
-    done = torch.zeros((b,), dtype=torch.bool, device=device)
     diag_free = torch.diag_embed(tan_free)
     diag_fixed = torch.diag_embed(1.0 - tan_free)
 
     def sel(mask, a, b_):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
 
-    while True:
-        outer = ~done & (it < max_it)
-        if not bool(outer.any()):
-            break
-        # one LINEARIZATION at the current iterate
+    def cond(state: LMState):
+        return ~state.done & (state.it < max_it)
+
+    def step(state: LMState) -> LMState:
+        outer = cond(state)
+        x, cost = state.x, state.cost
         r_lin, jac = linearize(x)
         rw, jw = weighted(r_lin, jac)
         jw = jw * tan_free[:, None, :]
         g = torch.einsum("bmi,bm->bi", jw, rw)
         a = jw.transpose(-1, -2) @ jw
 
-        gtol_hit = g.abs().amax(dim=-1) <= eps
+        grad_max = g.abs().amax(dim=-1)
+        gtol_hit = grad_max <= eps
         diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
         # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
         # scaled system has unit diagonal, so the damping is mu * I and the
@@ -264,9 +283,9 @@ def lm_core(
         x_norm = torch.linalg.norm(x, dim=-1)
 
         # inner damping-retry loop on the cached linearization
-        t_x, t_cost, t_mu, t_nu, t_it = x, cost, mu, nu, it
-        accepted = torch.zeros_like(done)
-        t_term = torch.zeros_like(termination)
+        t_x, t_cost, t_mu, t_nu, t_it = x, cost, state.mu, state.nu, state.it
+        accepted = torch.zeros_like(state.done)
+        t_term = torch.zeros_like(state.termination)
         while True:
             active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
             if not bool(active.any()):
@@ -291,7 +310,7 @@ def lm_core(
             mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
             term = torch.where(
                 gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-            ).to(termination.dtype)
+            ).to(t_term.dtype)
 
             t_x = sel(accept, x_new, t_x)
             t_cost = sel(accept, cost_new, t_cost)
@@ -302,21 +321,87 @@ def lm_core(
             t_term = sel(active, term, t_term)
 
         # lanes outside the outer loop never went active: their t_* are
-        # their own state
-        x, cost, mu, nu, it = t_x, t_cost, t_mu, t_nu, t_it
-        done = torch.where(outer, t_term > 0, done)
-        termination = torch.where(outer, t_term, termination)
-        lin = lin + outer.to(lin.dtype)
+        # their own state, so only the per-linearization fields need gating
+        return LMState(
+            x=t_x, mu=t_mu, nu=t_nu, cost=t_cost, it=t_it,
+            done=torch.where(outer, t_term > 0, state.done),
+            termination=torch.where(outer, t_term, state.termination),
+            grad_max=torch.where(outer, grad_max, state.grad_max),
+            lin=state.lin + outer.to(state.lin.dtype),
+        )
 
-    return LMOutput(
-        x=x,
-        cost=cost,
-        initial_cost=cost0,
-        iterations=it,
-        termination=termination,
-        success=termination > 0,
-        linearizations=lin,
+    it = torch.zeros((b,), dtype=torch.int64, device=device)
+    init = LMState(
+        x=x_init,
+        mu=torch.full((b,), _MU_INIT, dtype=dtype, device=device),
+        nu=torch.full((b,), 2.0, dtype=dtype, device=device),
+        cost=cost_of(r),
+        it=it,
+        done=torch.zeros((b,), dtype=torch.bool, device=device),
+        termination=torch.zeros_like(it),
+        grad_max=torch.full((b,), torch.inf, dtype=dtype, device=device),
+        lin=torch.zeros_like(it),
     )
+    return init, step, cond
+
+
+def lm_output(init: LMState, final: LMState) -> LMOutput:
+    """The ``LMOutput`` of a run of ``make_lm_step`` from ``init`` to
+    ``final``."""
+    return LMOutput(
+        x=final.x,
+        cost=final.cost,
+        initial_cost=init.cost,
+        iterations=final.it,
+        termination=final.termination,
+        success=final.termination > 0,
+        linearizations=final.lin,
+    )
+
+
+def lm_core(
+    residual_fn: Callable,
+    x0,
+    manifold: ProductManifold,
+    *,
+    data: tuple = (),
+    options: OptimOptions = OptimOptions(),
+    free_mask=None,
+    block_ids=None,
+    num_blocks: int = 0,
+    lower=None,
+    upper=None,
+    jac_fn: Optional[Callable] = None,
+) -> LMOutput:
+    """Minimize 0.5 * sum rho(|r|^2) over the manifold, for B problems:
+    ``make_lm_step``'s step while any lane's ``cond`` holds (the host reads
+    one flag per linearization and one per trial).
+
+    Args:
+      residual_fn: (x (B, a), *data) -> (B, m) residuals (masked rows
+        zeroed by the caller).
+      x0: (B, a) initial ambient parameters.
+      manifold: parameter-block structure of one problem.
+      data: tuple of (B, ...) tensors passed to residual_fn and jac_fn.
+      free_mask: optional (a,) or (B, a) bool; False coordinates are frozen.
+      block_ids: optional (m,) robust-loss block id per residual row (numpy
+        or tensor, shared by the lanes); None is one block when
+        huber_delta > 0.
+      num_blocks: count of robust-loss blocks.
+      lower/upper: optional (a,) or (B, a) box bounds, enforced by
+        projection after each retraction.
+      jac_fn: optional analytic tangent Jacobian, (x, *data) -> (B, m, t);
+        it must equal ``tangent_jacobian`` of the residual. None ->
+        forward-mode autodiff.
+    """
+    init, step, cond = make_lm_step(
+        residual_fn, x0, manifold, data=data, options=options, free_mask=free_mask, block_ids=block_ids,
+        num_blocks=num_blocks, lower=lower, upper=upper, jac_fn=jac_fn,
+    )
+    state = init
+    while bool(cond(state).any()):
+        state = step(state)
+    return lm_output(init, state)
 
 
 def covariance(

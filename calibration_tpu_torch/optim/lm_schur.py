@@ -33,7 +33,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg, se3
 from .core import OptimOptions
-from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput
+from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput, dual_level
 
 
 class SchurOutput(NamedTuple):
@@ -97,7 +97,7 @@ def view_jacobian_fn(residual_fn: Callable, *, g_manifold=None) -> Callable:
         def rep(a):  # (B, ...) -> (cols * B, ...), copy c carries column c
             return a.expand((cols,) + a.shape).reshape((cols * a.shape[0],) + a.shape[1:])
 
-        with fwAD.dual_level():
+        with dual_level():
             dg = fwAD.make_dual(xg.new_zeros((cols * b, pg)), eye[:, None, :pg].expand(cols, b, pg).reshape(cols * b, pg))
             dv = fwAD.make_dual(xg.new_zeros((cols * b, v, 6)),
                                 eye[:, None, None, pg:].expand(cols, b, v, 6).reshape(cols * b, v, 6))
@@ -108,6 +108,27 @@ def view_jacobian_fn(residual_fn: Callable, *, g_manifold=None) -> Callable:
         return jac.reshape((cols, b) + jac.shape[1:]).permute(1, 2, 3, 0)  # (B, V, m, pg + 6)
 
     return jac_fn
+
+
+def full_jacobian(residual_view_fn, xg, quats, trans, view_data, g_manifold=None, jac_view_fn=None):
+    """The full tangent-space (r, J) of a batch at a solution, assembled
+    from the per-view (pg + 6)-tangent blocks in the ProductManifold layout
+    [global | quat x V | euclid(3) x V] of ``optimize_intrinsics_device``
+    and ``optimize_extrinsics_device``: r (B, V m), J (B, V m, pg + 6V).
+    The blocks come from ``jac_view_fn`` (an analytic per-view Jacobian) or
+    by forward mode (``view_jacobian_fn``). Feeds ``lm.covariance``'s
+    ``jac_r``."""
+    jac_fn = jac_view_fn or view_jacobian_fn(residual_view_fn, g_manifold=g_manifold)
+    r = residual_view_fn(xg, quats, trans, *view_data)  # (B, V, m)
+    jac = jac_fn(xg, quats, trans, *view_data)  # (B, V, m, pg + 6)
+    b, v, m = r.shape
+    pg = jac.shape[-1] - 6
+    # view i's rotation and translation columns go to its own slots
+    eye = torch.eye(v, dtype=jac.dtype, device=jac.device)[:, None, :, None]  # (V, 1, V, 1)
+    rot = (jac[..., None, pg : pg + 3] * eye).reshape(b, v, m, 3 * v)
+    tra = (jac[..., None, pg + 3 :] * eye).reshape(b, v, m, 3 * v)
+    jfull = torch.cat([jac[..., :pg], rot, tra], dim=-1)
+    return r.reshape(b, v * m), jfull.reshape(b, v * m, pg + 6 * v)
 
 
 def _huber(r, huber, blocks_per_view=1):
@@ -233,6 +254,7 @@ def lm_core_schur(
     lower_g=None,
     g_manifold=None,
     blocks_per_view: int = 1,
+    jac_dtype=None,
 ) -> SchurOutput:
     """Minimize 0.5 * sum_v rho(|r_v|^2) over (global, per-view pose) blocks
     for a batch of B independent problems.
@@ -259,6 +281,13 @@ def lm_core_schur(
       g_manifold: optional ProductManifold of the global block; None means
         Euclidean (pg = ga).
       blocks_per_view: Huber loss blocks per view (C for a C-camera rig).
+      jac_dtype: optional dtype (torch.float32) of the Jacobian and the
+        grams built from it only; the iterate, residuals, cost and the
+        acceptance test stay in the state's dtype, so every accepted step
+        lowers the true cost and only the step direction is approximate.
+        Pair such a phase with a full-precision polish
+        (``optimize_intrinsics_device(precision="mixed_jac")``). None: the
+        state's dtype.
     """
     eps = options.epsilon
     huber = options.huber_delta
@@ -292,6 +321,9 @@ def lm_core_schur(
     def weights(r):
         return _huber(r, huber, blocks_per_view)
 
+    gdt = dtype if jac_dtype is None else jac_dtype
+    view_data_j = tuple(d.to(gdt) if d.is_floating_point() else d for d in view_data)
+
     xg = clip_g(xg0)
     quats, trans = quats0, trans0
     r = residuals(xg, quats, trans)
@@ -311,19 +343,20 @@ def lm_core_schur(
         outer = ~done & (it < max_it)
         if not bool(outer.any()):
             break
-        # one LINEARIZATION at the current iterate
-        jac = jac_fn(xg, quats, trans, *view_data)  # (B, V, m, pg + 6)
+        # one LINEARIZATION at the current iterate; the Jacobian and its
+        # grams in gdt, the system in the state's dtype
+        jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
         w, _ = weights(r)
         sw = torch.sqrt(w)
-        rw = r * sw
-        jw = jac * sw[..., None]
-        a_blk = jw[..., :pg] * gmask[:, None, None, :]
-        b_blk = jw[..., pg:] * vmask6[:, :, None, :]
-        u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk)
-        wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk)
-        vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk)
-        gu = torch.einsum("bvmi,bvm->bi", a_blk, rw)
-        gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw)
+        rw = (r * sw).to(gdt)
+        jw = jac * sw[..., None].to(gdt)
+        a_blk = jw[..., :pg] * gmask[:, None, None, :].to(gdt)
+        b_blk = jw[..., pg:] * vmask6[:, :, None, :].to(gdt)
+        u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk).to(dtype)
+        wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk).to(dtype)
+        vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk).to(dtype)
+        gu = torch.einsum("bvmi,bvm->bi", a_blk, rw).to(dtype)
+        gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw).to(dtype)
 
         grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
         gtol_hit = grad_max <= eps

@@ -6,21 +6,29 @@ The reference lifts single-problem cores over a problem axis with
 ``jax.vmap`` inside one jitted program. Here every core already takes a
 leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
 between phases becomes a host decision. Every entry point takes the
-reference's parameters in its order; ``mesh`` (sharding), precisions other
-than "f64" and camera models a path does not take raise
-``NotImplementedError`` (``check_ported``: the intrinsics, extrinsics and
-line-scan paths take every registry model, bundle_batch pinhole, as the
-reference's), and
-``analytic_jac`` is accepted for any value (the analytic Jacobians equal
-jacfwd to 1e-10; other models always use forward-mode autodiff).
+reference's parameters in its order. With a ``mesh`` (``sharding.Mesh``)
+the batch is padded to the mesh size, split, each shard solved on its own
+device and host thread, and the results gathered on the mesh's first
+device (``_on_mesh``); as in the reference, a mesh turns the phased
+schedules off unless ``two_phase`` asks for them. Camera models a path
+does not take raise ``NotImplementedError`` (``check_ported``: the
+intrinsics, extrinsics and line-scan paths take every registry model,
+bundle_batch pinhole, as the reference's), and ``analytic_jac`` is
+accepted for any value (the analytic Jacobians equal jacfwd to 1e-10;
+other models always use forward-mode autodiff).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..models.registry import PINHOLE, SCHEIMPFLUG, SPECS
 from ..ops import handeye_linear, intrinsics_linear, planarpose
@@ -43,6 +51,7 @@ from ..optim.intrinsics import (
 )
 from ..optim.lm import LMOutput
 from ..optim.planarpose import optimize_planar_pose_device
+from . import sharding as sh
 
 # The reference's measured pinhole defaults (its CALIB_TWO_PHASE_CAP
 # override is not ported): run the full batch up to TWO_PHASE_CAP_A
@@ -90,6 +99,68 @@ BUNDLE_PHASE_CAP = 5
 # lowest. (The reference's TPU-tuned caps are 12 and 30.)
 SCHEIMPFLUG_PHASE_CAP_FIXED = 12
 SCHEIMPFLUG_PHASE_CAP_FREE = 10
+
+
+def _maybe_shard(args, mesh):
+    """(one copy of ``args`` per shard of ``mesh``, the real batch size):
+    the batch padded with copies of problem 0 to a multiple of the mesh
+    size (replicating would cost every shard the whole batch), then split
+    over the mesh's devices."""
+    if not isinstance(mesh, sh.Mesh):
+        raise TypeError(f"mesh must be a calibration_tpu_torch.parallel.Mesh (make_mesh), not {type(mesh).__name__}")
+    args, real_b = sh.pad_batch(args, mesh.size)
+    return sh.shard_batch(args, mesh), real_b
+
+
+def _trim(out, real_b):
+    """Drop padded problems from every output leaf's leading axis."""
+    return pytree.tree_map(lambda x: x[:real_b] if isinstance(x, torch.Tensor) and x.dim() >= 1 else x, out)
+
+
+def _gather(outs, device):
+    """The shards' output trees as one: each tensor leaf concatenated along
+    its leading axis on ``device``, NamedTuples leaf by leaf."""
+    flat = [pytree.tree_flatten(o)[0] for o in outs]
+    leaves = [
+        torch.cat([f[i].to(device) for f in flat]) if isinstance(leaf, torch.Tensor) else leaf
+        for i, leaf in enumerate(flat[0])
+    ]
+    return pytree.tree_unflatten(leaves, pytree.tree_flatten(outs[0])[1])
+
+
+_cuda_linalg_lock = threading.Lock()
+
+
+@functools.cache
+def _load_cuda_linalg() -> None:
+    """PyTorch loads its CUDA linear-algebra kernels at the process's first
+    linalg call on a card, and that first call is not thread-safe: shards
+    making it together fail with "lazy wrapper should be called at most
+    once" (measured on an H100). One small call before the shards' threads
+    start loads them."""
+    torch.linalg.cholesky(torch.ones((1, 1), device="cuda"))
+
+
+def _on_mesh(fn, mesh, args, **kwargs):
+    """``fn(*args, **kwargs)`` solved shard by shard over ``mesh``: ``args``
+    (the batched arguments) padded and split by ``_maybe_shard``, each
+    shard's call on a host thread of its own under its CUDA device, the
+    outputs gathered on ``mesh.devices[0]`` and the padding trimmed. The
+    problems are independent, so no shard waits for another; forward-mode
+    Jacobians take turns (``lm.FORWARD_AD_LOCK``)."""
+    shards, real_b = _maybe_shard(args, mesh)
+    if any(d.type == "cuda" for d in mesh.devices):
+        with _cuda_linalg_lock:
+            _load_cuda_linalg()
+
+    def run(device, shard):
+        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            return fn(*shard, **kwargs)
+
+    with ThreadPoolExecutor(max_workers=mesh.size) as pool:
+        futures = [pool.submit(run, d, shard) for d, shard in zip(mesh.devices, shards)]
+        outs = [f.result() for f in futures]
+    return _trim(_gather(outs, mesh.devices[0]), real_b)
 
 
 def _phase_budget(total: int, caps: tuple) -> tuple:
@@ -153,12 +224,12 @@ def _phased_lm(solve, data_args, init_sol, schedule):
     return lm_m, sol_m
 
 
-def _phased_solve(opts: IntrinsicsOptimOptions, model):
+def _phased_solve(opts: IntrinsicsOptimOptions, model, precision):
     def solve(iters, obj, uv, mask, view_valid, init_intr, init_poses):
         core = dataclasses.replace(opts.core, compute_covariance=False, max_iterations=iters)
         return optimize_intrinsics_device(
             obj, uv, init_intr, init_poses, mask=mask, model=model,
-            opts=dataclasses.replace(opts, core=core), view_valid=view_valid,
+            opts=dataclasses.replace(opts, core=core), precision=precision, view_valid=view_valid,
         )
 
     return solve
@@ -175,15 +246,16 @@ def _intrinsics_phase_cap(model, opts: IntrinsicsOptimOptions) -> int:
     return fixed if opts.fixed_distortion_indices else free
 
 
-def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase, model):
+def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase, model, precision):
     """LM refine (+ covariance): one solve over the batch, or the phased
     solve with covariance deferred to one pass over the merged solution."""
     if not two_phase:
         return optimize_intrinsics_device(
-            obj, uv, init_intr, init_poses, mask=mask, model=model, opts=opts, view_valid=view_valid
+            obj, uv, init_intr, init_poses, mask=mask, model=model, opts=opts, precision=precision,
+            view_valid=view_valid,
         )
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
-        _phased_solve(opts, model), (obj, uv, mask, view_valid), (init_intr, init_poses),
+        _phased_solve(opts, model, precision), (obj, uv, mask, view_valid), (init_intr, init_poses),
         _phase_budget(opts.core.max_iterations, (_intrinsics_phase_cap(model, opts),)),
     )
     b, v = obj.shape[0], obj.shape[1]
@@ -219,10 +291,16 @@ def intrinsics_batch(
     ``bench.py`` times).
 
     obj_xy/img_uv: (B, V, N, 2) float64; mask: (B, V, N). two_phase: None
-    -> on for B >= TWO_PHASE_MIN_BATCH. Returns (seed, (LMOutput, intr,
-    poses, view_errors, cov, cov_ok)).
+    -> on for B >= TWO_PHASE_MIN_BATCH without a mesh. ``precision``:
+    "f64", "mixed" or "mixed_jac" (``optimize_intrinsics_device``). Returns
+    (seed, (LMOutput, intr, poses, view_errors, cov, cov_ok)).
     """
-    model = check_ported(model_name, precision, mesh, models=INTRINSICS_MODELS)
+    model = check_ported(model_name, models=INTRINSICS_MODELS)
+    if mesh is not None:
+        return _on_mesh(
+            intrinsics_batch, mesh, (obj_xy, img_uv, mask), opts=opts, model_name=model_name,
+            precision=precision, analytic_jac=analytic_jac, two_phase=bool(two_phase),
+        )
     opts = opts or IntrinsicsOptimOptions()
     if mask is None:
         mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
@@ -235,7 +313,7 @@ def intrinsics_batch(
         two_phase = obj_xy.shape[0] >= TWO_PHASE_MIN_BATCH
     out = _refine(
         obj_xy, img_uv, mask.to(obj_xy.dtype), None, _init_intr(kmtx, model), seed.c_se3_t,
-        opts, two_phase, model,
+        opts, two_phase, model, precision,
     )
     return seed, out
 
@@ -268,9 +346,16 @@ def intrinsics_facade_batch(
     reference.
 
     Returns (seed, pose_ok (B, V), (LMOutput, intr, poses, view_errors,
-    cov, cov_ok), rms_check (B, V) float32).
+    cov, cov_ok), rms_check (B, V) float32). On a mesh each shard runs its
+    own QA recheck, one K1 launch per shard on its device.
     """
-    model = check_ported(model_name, precision, mesh, models=INTRINSICS_MODELS)
+    model = check_ported(model_name, models=INTRINSICS_MODELS)
+    if mesh is not None:
+        return _on_mesh(
+            intrinsics_facade_batch, mesh, (obj_xy, img_uv, mask, view_valid), opts=opts, bounds=bounds,
+            zero_skew=zero_skew, model_name=model_name, precision=precision, analytic_jac=analytic_jac,
+            two_phase=bool(two_phase),
+        )
     opts = opts or IntrinsicsOptimOptions()
     dtype, device = obj_xy.dtype, obj_xy.device
     b, v = obj_xy.shape[0], obj_xy.shape[1]
@@ -294,7 +379,9 @@ def intrinsics_facade_batch(
 
     if two_phase is None:
         two_phase = b >= TWO_PHASE_MIN_BATCH
-    out = _refine(obj_xy, img_uv, vmask, view_valid, _init_intr(kmtx, model), init_poses, opts, two_phase, model)
+    out = _refine(
+        obj_xy, img_uv, vmask, view_valid, _init_intr(kmtx, model), init_poses, opts, two_phase, model, precision
+    )
     if model.qa_recheck:
         rms_check = reprojection_rms_batch(out[2], out[1], obj_xy, img_uv, vmask)
     else:
@@ -357,7 +444,12 @@ def extrinsics_batch(
     different LM path, and the reference computes covariance only on the
     single-phase one. Every model runs the same schedule.
     """
-    model = check_ported(model_name, mesh=mesh, models=EXTRINSICS_MODELS)
+    model = check_ported(model_name, models=EXTRINSICS_MODELS)
+    if mesh is not None:
+        return _on_mesh(
+            extrinsics_batch, mesh, (obj_xy, img_uv, init_intrs, init_c_se3_r, init_r_se3_t, mask), opts=opts,
+            model_name=model_name, solver=solver, analytic_jac=analytic_jac, two_phase=bool(two_phase),
+        )
     opts = opts or ExtrinsicOptions()
     dtype = obj_xy.dtype
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
@@ -417,7 +509,11 @@ def homography_batch(
     reference's default is f32; its seed is equivalence-tested only on
     well-conditioned data).
     """
-    check_ported(mesh=mesh)
+    if mesh is not None:
+        return _on_mesh(
+            homography_batch, mesh, (obj_xy, img_uv, mask), options=options, two_phase=bool(two_phase),
+            seed_precision=seed_precision,
+        )
     dtype = obj_xy.dtype
     mask = torch.ones(obj_xy.shape[:-1], dtype=dtype, device=obj_xy.device) if mask is None else mask.to(dtype)
     init_h = _homog_seed(obj_xy, img_uv, mask, seed_precision)
@@ -446,7 +542,11 @@ def handeye_batch(
     feeds both. base_se3_gripper/cam_se3_target: (B, P, 4, 4).
     rot_residual: "quat" (default) or "log" (see optimize_handeye_device).
     Returns the optimize_handeye_device tuple."""
-    check_ported(mesh=mesh)
+    if mesh is not None:
+        return _on_mesh(
+            handeye_batch, mesh, (base_se3_gripper, cam_se3_target), options=options, min_angle_deg=min_angle_deg,
+            rot_residual=rot_residual,
+        )
     pairs = handeye_linear.build_all_pairs(base_se3_gripper, cam_se3_target, min_angle_deg)
     init, _ = handeye_linear.estimate_handeye_dlt_pairs(pairs)
     return optimize_handeye_device(pairs, init, options, rot_residual=rot_residual)
@@ -457,7 +557,8 @@ def planar_pose_batch(obj_xy, img_uv, kmtx, mask=None, options: OptimOptions = O
     then ``optimize_planar_pose_device`` with two radial coefficients.
     obj_xy/img_uv: (B, N, 2); kmtx: (B, 5); mask: optional (B, N). Returns
     its tuple."""
-    check_ported(mesh=mesh)
+    if mesh is not None:
+        return _on_mesh(planar_pose_batch, mesh, (obj_xy, img_uv, kmtx, mask), options=options)
     if mask is None:
         mask = torch.ones(obj_xy.shape[:-1], dtype=torch.bool, device=obj_xy.device)
     init = planarpose.estimate_planar_pose(obj_xy, img_uv, kmtx, mask)
@@ -489,7 +590,11 @@ def bundle_batch(
     ``_phased_lm``; the budget is never exceeded); None -> on for B >=
     TWO_PHASE_MIN_BATCH. Covariance forces one phase, as in the reference.
     """
-    check_ported(mesh=mesh)
+    if mesh is not None:
+        return _on_mesh(
+            bundle_batch, mesh, (obj_xy, img_uv, b_se3_g, cam_idx, init_intrs, init_g_se3_c, init_b_se3_t, mask),
+            opts=opts, analytic_jac=analytic_jac, two_phase=bool(two_phase),
+        )
     opts = opts or BundleOptions()
     analytic = True if analytic_jac is None else bool(analytic_jac)
     dtype = obj_xy.dtype
@@ -519,12 +624,12 @@ def bundle_batch(
 LINESCAN_MODELS = tuple(m.name for m in SPECS)
 
 
-def _linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh):
+def _linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name):
     """The lifted laser points of a batch of rigs: every target and laser
     pixel unprojected through the camera model (distortion, and sensor tilt
     for Scheimpflug), then ``lift_laser_points``. Returns (points
     (B, V*L, 3), point mask (B, V*L), views_ok (B,))."""
-    model = check_ported(model_name, mesh=mesh, models=LINESCAN_MODELS)
+    model = check_ported(model_name, models=LINESCAN_MODELS)
     cam = camera[:, None, None, :]
     return ls.lift_laser_points(
         obj_xy, model.unproject_normalized(cam, target_uv), model.unproject_normalized(cam, laser_uv),
@@ -544,8 +649,13 @@ def linescan_batch(camera, obj_xy, target_uv, laser_uv, target_mask=None,
     (B, 4, 4) zero, homography (B, 3, 3), rms_error (B,), inlier_count
     (B,), ok (B,)).
     """
+    if mesh is not None:
+        return _on_mesh(
+            linescan_batch, mesh, (camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask),
+            model_name=model_name,
+        )
     return ls.fit_laser_plane(
-        *_linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh)
+        *_linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name)
     )
 
 
@@ -563,10 +673,13 @@ def linescan_ransac_batch(
     ``RansacOptions(thresh=0.005, min_inliers=12)``; thresh is in metres,
     a plane-point distance). Returns a LineScanResult batch.
     """
+    if mesh is not None:
+        return _on_mesh(
+            linescan_ransac_batch, mesh, (camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask),
+            options=options, model_name=model_name,
+        )
     options = options or RansacOptions(thresh=0.005, min_inliers=12)
-    pts, pts_mask, _ = _linescan_points(
-        camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name, mesh
-    )
+    pts, pts_mask, _ = _linescan_points(camera, obj_xy, target_uv, laser_uv, target_mask, laser_mask, model_name)
     rr = ransac_plane(pts, options, mask=pts_mask)
     return ls.LineScanResult(
         plane=rr.model,

@@ -123,7 +123,27 @@
    ``optimize_bundle_device(model=SCHEIMPFLUG)``, the intrinsics fixed:
    every rig converged, g_se3_c within BUNDLE_TOL; card vs CPU on 8 rigs.
    None of 17-20 launches K1 (checked).
-21. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
+21. The ``mesh`` argument: config 2 through ``intrinsics_facade_batch``
+   on a mesh of every visible card (B = 256) and on 4 shards of one card
+   (B = 254, padded to 256), config 5 through ``bundle_batch`` (B = 126)
+   and planar pose (2558 views) on the 4-shard mesh: every lane
+   converged, the unpadded outputs on the mesh's first device, K1
+   launched once per shard on the facade calls, final cost within 1e-10
+   relative of the unsharded single-phase call on the same inputs with
+   the same counters (planar pose: linearizations and success), warm
+   medians of both. With one card visible, multi-card scaling is
+   reported as not measured.
+22. The precisions: config 2 (B = 256, phased) through ``intrinsics_batch``
+   in "f64", "mixed" and "mixed_jac", config 5 (B = 128) through
+   ``optimize_bundle_device`` in "f64" and "mixed": every lane converged,
+   each lane's final cost within 1e-7 relative of the f64 run's, the
+   cells' truth bounds; interleaved warm medians.
+23. ``lm_cost_trace`` on config 1 (B = 8192, single phase): its output
+   equal to ``lm_core``'s, the last linearization's cost the final cost,
+   no curve rising, the median curve, its time against ``lm_core``'s; then
+   one warm config-2 facade call under ``device_trace``, whose Chrome
+   trace names K1's kernel.
+24. Times each mode of K1 on its own, at 2560 x 88 and 1280 x 88: device
    time of the bare launcher captured in a CUDA graph (L2-warm on one input
    set, L2-cold over rotating sets), the kernel's duration as
    torch.profiler reads it, the wrapper's host time per call, the bound and
@@ -173,7 +193,9 @@ from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, Intrins
 from calibration_tpu_torch.optim import optimize_bundle_device, optimize_intrinsics_semidlt_device
 from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
-from calibration_tpu_torch.parallel import linescan_ransac_batch
+from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh
+from calibration_tpu_torch.optim import homography as homography_opt
+from calibration_tpu_torch.utils import device_trace, lm_cost_trace
 from calibration_tpu_torch.pipeline import loaders, reports, stages
 from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
@@ -290,6 +312,14 @@ SOLVER_PARITY_RIGS = 8
 # the camera fixed at the truth: camera 1's pose only. The JAX reference's
 # worst rig (tools/solver_reference.py) is 1.55 mm / 0.098 deg, well inside
 # POSE_TOL
+FACADE_OPTS = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, epsilon=1e-9, compute_covariance=True))
+MESH_SHARDS = 4  # shards of one card in the mesh phase
+MESH_FACADE_CAMERAS = 254  # config 2 on the 4-shard mesh: pads to 256
+MESH_BUNDLE_RIGS = 126  # config 5 on the 4-shard mesh: pads to 128
+MESH_PLANAR_VIEWS = 2558  # planar pose on the 4-shard mesh: pads to 2560
+MESH_COST_RTOL = 1e-10  # sharded vs unsharded single-phase final cost, the same card
+MIXED_CAMERAS = 256  # config 2 through intrinsics_batch in each precision
+MIXED_COST_RTOL = 1e-7  # mixed / mixed_jac vs f64 final cost, per lane
 STEREO_SCHEIM_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False),
                                       optimize_intrinsics=False)
 
@@ -1818,6 +1848,211 @@ def bundle_scheimpflug_phase(dev, card):
     return med
 
 
+def interleaved_medians(runs, dev):
+    """{name: (median s, warm calls)} of WARM_CALLS rounds in which every
+    run of ``runs`` ({name: fn}) is called once, in turn."""
+    walls = {name: [] for name in runs}
+    for _ in range(WARM_CALLS):
+        for name, run in runs.items():
+            walls[name].append(timed(run, dev)[1])
+    return {name: (float(np.median(w)), w) for name, w in walls.items()}
+
+
+def mesh_parity(got, want, what, counters=("iterations", "termination")):
+    """A sharded call's LMOutput against the unsharded single-phase call's
+    on the same card: final cost within MESH_COST_RTOL relative and the
+    same ``counters`` (the card/CPU rule of the path)."""
+    rel = float(((got.cost - want.cost).abs() / want.cost.abs()).max())
+    same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in counters)
+    print(f"[smoke] {what} vs unsharded single phase: final cost max rel diff {rel!r}, same {' and '.join(counters)} "
+          f"{same}")
+    check(rel <= MESH_COST_RTOL and same,
+          f"{what}: cost within {MESH_COST_RTOL} relative of the unsharded call, the same {' and '.join(counters)}")
+
+
+def mesh_facade_cell(dev, card, mesh, b, what):
+    """Config 2's first ``b`` cameras through intrinsics_facade_batch on
+    ``mesh``: every lane converged, the unpadded batch on the mesh's first
+    device, one K1 launch per shard on the card, parity with the unsharded
+    single-phase call, warm medians of both. Returns the K1 launches of
+    the first call."""
+    obj, uv, intr_gt = make_problems(b)
+    obj_d, uv_d = torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev)
+    runs = {
+        "sharded": functools.partial(intrinsics_facade_batch, obj_d, uv_d, opts=FACADE_OPTS, mesh=mesh),
+        "unsharded": functools.partial(intrinsics_facade_batch, obj_d, uv_d, opts=FACADE_OPTS, two_phase=False),
+    }
+    zero_launches()
+    (_, _, out, rms_check), first_s = timed(runs["sharded"], dev)
+    launches = pr.launches["rms"]
+    lm = out[0]
+    check(bool(lm.success.all()), f"{what}: all {b} lanes converged")
+    check(out[1].shape == (b, 10) and out[1].device == mesh.devices[0] and rms_check.shape[0] == b,
+          f"{what}: the outputs hold the unpadded batch on {mesh.devices[0]}")
+    fx_err = float((out[1][:, 0] - intr_gt[0]).abs().mean())
+    check(fx_err < 5.0, f"{what}: mean |fx - 600| < 5 px")
+    if dev.type == "cuda":
+        check(launches == mesh.size and pr.launches["residuals"] == 0,
+              f"{what}: one K1 launch in RMS mode per shard ({mesh.size})")
+    mesh_parity(lm, runs["unsharded"]()[2][0], what)
+    med = interleaved_medians(runs, dev)
+    print(f"[smoke] {what} B={b} on {mesh.size} shard(s) ({', '.join(map(str, mesh.devices))}): K1 launches "
+          f"{launches}, first call {first_s!r} s, warm median {med['sharded'][0]!r} s = {b / med['sharded'][0]!r} "
+          f"solves/s; unsharded single phase {med['unsharded'][0]!r} s = {b / med['unsharded'][0]!r} solves/s, "
+          f"sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r} on {card} (warm calls {med!r})")
+    return launches
+
+
+def mesh_phase(dev, card):
+    """The ``mesh`` argument on the card: config 2 on a mesh of every
+    visible card (B = 256) and on MESH_SHARDS shards of one card (B = 254,
+    padded to 256), config 5 (B = 126) and planar pose (2558 views) on the
+    4-shard mesh, each against the unsharded single-phase call on the same
+    inputs. Returns the K1 launches of the two facade cells' first calls."""
+    every = make_mesh() if dev.type == "cuda" else make_mesh([dev])
+    launches = mesh_facade_cell(dev, card, every, FLEET, "config 2, every card")
+    if every.size >= 2:
+        print(f"[smoke] config 2 over {every.size} cards: multi-card rate above")
+    else:
+        print("[smoke] one card visible: multi-card scaling not measured")
+    shards = make_mesh([dev] * MESH_SHARDS)
+    launches += mesh_facade_cell(dev, card, shards, MESH_FACADE_CAMERAS, "config 2, 4 shards of one card")
+
+    p = bundle_problems(MESH_BUNDLE_RIGS)
+    args = bundle_args(p, dev)
+    runs = {"sharded": functools.partial(bundle_batch, *args, opts=BUNDLE_OPTS, mesh=shards),
+            "unsharded": functools.partial(bundle_batch, *args, opts=BUNDLE_OPTS, two_phase=False)}
+    zero_launches()
+    out, first_s = timed(runs["sharded"], dev)
+    check_no_launches("config 5 on the mesh")
+    check_bundle(out, p)
+    check(out[2].device == shards.devices[0], "config 5 on the mesh: the outputs on the mesh's first device")
+    mesh_parity(out[0], runs["unsharded"]()[0], "config 5, 4 shards")
+    med = interleaved_medians(runs, dev)
+    print(f"[smoke] config 5 B={MESH_BUNDLE_RIGS} on {MESH_SHARDS} shards: first call {first_s!r} s, warm median "
+          f"{med['sharded'][0]!r} s = {MESH_BUNDLE_RIGS / med['sharded'][0]!r} rigs/s; unsharded single phase "
+          f"{med['unsharded'][0]!r} s, sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r} on {card}")
+
+    obj, uv, kmtx, truth = (a[:MESH_PLANAR_VIEWS] for a in planar_problems(PLANAR_CAMERAS))
+    tens = [torch.as_tensor(a, device=dev) for a in (obj, uv, kmtx)]
+    runs = {"sharded": functools.partial(batched.planar_pose_batch, *tens, options=PLANAR_OPTS, mesh=shards),
+            "unsharded": functools.partial(batched.planar_pose_batch, *tens, options=PLANAR_OPTS)}
+    zero_launches()
+    (lm, pose, *_), first_s = timed(runs["sharded"], dev)
+    check_no_launches("planar pose on the mesh")
+    tra, rot = pose_errors(pose.cpu().numpy(), truth)
+    check(bool(lm.success.all()) and pose.shape[0] == MESH_PLANAR_VIEWS, "planar pose on the mesh: every lane converged")
+    check(tra <= PLANAR_TOL_M and rot <= PLANAR_TOL_DEG, "planar pose on the mesh: every pose within PLANAR_TOL")
+    mesh_parity(lm, runs["unsharded"]()[0], "planar pose, 4 shards", PLANAR_PARITY_COUNTERS)
+    med = interleaved_medians(runs, dev)
+    print(f"[smoke] planar pose B={MESH_PLANAR_VIEWS} on {MESH_SHARDS} shards: first call {first_s!r} s, warm median "
+          f"{med['sharded'][0]!r} s = {MESH_PLANAR_VIEWS / med['sharded'][0]!r} poses/s; unsharded "
+          f"{med['unsharded'][0]!r} s, sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r} on {card}")
+    return launches
+
+
+def mixed_phase(dev, card):
+    """The precisions on the card: config 2 (MIXED_CAMERAS, phased,
+    covariance on) through intrinsics_batch in "f64", "mixed" and
+    "mixed_jac", and config 5 through optimize_bundle_device in "f64" and
+    "mixed": every lane converged, each lane's final cost within
+    MIXED_COST_RTOL of the f64 run's, the cells' truth bounds;
+    WARM_CALLS interleaved warm calls of each, medians printed."""
+    obj, uv, intr_gt = make_problems(MIXED_CAMERAS)
+    obj_d, uv_d = torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev)
+    runs = {p: functools.partial(intrinsics_batch, obj_d, uv_d, opts=FACADE_OPTS, precision=p)
+            for p in ("f64", "mixed", "mixed_jac")}
+    p5 = bundle_problems(BUNDLE_RIGS)
+    args5 = bundle_args(p5, dev)
+    runs5 = {p: functools.partial(optimize_bundle_device, *args5, opts=BUNDLE_OPTS, precision=p)
+             for p in ("f64", "mixed")}
+    zero_launches()
+    outs = {p: timed(run, dev) for p, run in runs.items()}
+    outs5 = {p: timed(run, dev) for p, run in runs5.items()}
+    check_no_launches("the mixed precisions")
+    for p, ((_, out), first_s) in outs.items():
+        lm, intr, _, view_errors = out[:4]
+        rel = float(((lm.cost - outs["f64"][0][1][0].cost).abs() / outs["f64"][0][1][0].cost).max())
+        rms = float(torch.sqrt(torch.mean(view_errors**2)))
+        fx_err = float((intr[:, 0] - intr_gt[0]).abs().mean())
+        print(f"[smoke] config 2 B={MIXED_CAMERAS} precision {p}: first call {first_s!r} s, final cost max rel diff "
+              f"to f64 {rel!r}, mean view RMS {rms!r} px, mean |fx - 600| {fx_err!r} px, linearizations max "
+              f"{int(lm.linearizations.max())}")
+        check(bool(lm.success.all()), f"config 2 ({p}): all lanes converged")
+        check(rel <= MIXED_COST_RTOL, f"config 2 ({p}): final cost within {MIXED_COST_RTOL} of f64 on every lane")
+        check(0.15 <= rms <= 0.25 and fx_err < 5.0, f"config 2 ({p}): RMS in [0.15, 0.25] px, mean |fx - 600| < 5 px")
+    for p, (out, first_s) in outs5.items():
+        rel = float(((out[0].cost - outs5["f64"][0][0].cost).abs() / outs5["f64"][0][0].cost).max())
+        print(f"[smoke] config 5 B={BUNDLE_RIGS} precision {p}: first call {first_s!r} s, final cost max rel diff to "
+              f"f64 {rel!r}")
+        check_bundle(out, p5)
+        check(rel <= MIXED_COST_RTOL, f"config 5 ({p}): final cost within {MIXED_COST_RTOL} of f64 on every rig")
+    for cell, b, r in (("config 2", MIXED_CAMERAS, runs), ("config 5", BUNDLE_RIGS, runs5)):
+        med = interleaved_medians(r, dev)
+        print(f"[smoke] {cell} B={b} warm medians by precision on {card}: "
+              + ", ".join(f"{p} {m!r} s ({b / m!r}/s)" for p, (m, _) in med.items()) + f" (warm calls {med!r})")
+
+
+def homography_lm(obj, uv, options):
+    """Config 1's dense LM from its float64 DLT seed, single phase, both
+    ways: (``lm_cost_trace`` -> (LMOutput, costs (B, max_iterations)),
+    ``optimize_homography_device``'s ``lm_core`` -> LMOutput), each a
+    function of no arguments on the same inputs."""
+    mask, block_ids, n, _ = homography_opt._problem(obj, None)
+    init_h = batched._homog_seed(obj, uv, mask, "f64")
+
+    def trace():
+        return lm_cost_trace(
+            homography_opt._residual, homography_opt.h_to_params(init_h), homography_opt._MANIFOLD,
+            data=(obj, uv, mask), options=options, block_ids=block_ids, num_blocks=n,
+        )
+
+    def core():
+        return homography_opt.optimize_homography_device(init_h, obj, uv, mask, options=options)[0]
+
+    return trace, core
+
+
+def trace_phase(dev, card):
+    """lm_cost_trace on config 1 (HOMOG_LANES, HOMOG_OPTS, single phase):
+    its output equal to lm_core's (x, cost, counters), the cost at the last
+    linearization the final cost, no curve rising; the median curve and
+    the trace's cost against the plain solve. Then one warm config-2
+    facade call under device_trace: the trace file names K1's kernel."""
+    _, src, dst = homography_problems(HOMOG_LANES)
+    runs = dict(zip(("trace", "lm_core"), homography_lm(
+        torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev), HOMOG_OPTS)))
+    (out, costs), first_s = timed(runs["trace"], dev)
+    core = runs["lm_core"]()
+    same = all(torch.equal(getattr(out, f), getattr(core, f)) for f in out._fields)
+    lin = out.linearizations
+    last = costs.gather(1, (lin - 1).clamp(min=0)[:, None])[:, 0]
+    rises = int((costs[:, 1:] > costs[:, :-1]).any(dim=1).sum())
+    curve = costs[:, : int(lin.max())].median(dim=0).values.tolist()
+    print(f"[smoke] cost trace config 1 B={HOMOG_LANES}: equal to lm_core's output {same}, linearizations max "
+          f"{int(lin.max())}, lanes whose curve rises {rises}; median curve {curve!r}")
+    check(same, "the trace's output equals lm_core's (x, cost, every counter)")
+    check(torch.equal(last, out.cost), "the cost at each lane's last linearization is its final cost")
+    check(rises == 0, "no lane's cost curve rises")
+    med = interleaved_medians(runs, dev)
+    print(f"[smoke] cost trace config 1: first call {first_s!r} s; warm medians lm_cost_trace {med['trace'][0]!r} s, "
+          f"lm_core {med['lm_core'][0]!r} s, trace / lm_core {med['trace'][0] / med['lm_core'][0]!r} on {card} "
+          f"(warm calls {med!r})")
+
+    obj, uv, _ = make_problems(FLEET)
+    obj_d, uv_d = torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            intrinsics_facade_batch(obj_d, uv_d, opts=FACADE_OPTS)
+        files = list(Path(tmp).glob("trace_*.json"))
+        text = files[0].read_text() if len(files) == 1 else ""
+    print(f"[smoke] device_trace of one facade call: {len(files)} file(s), {len(text)} bytes, names K1's kernel "
+          f"{'projection_kernel' in text}")
+    check(len(files) == 1, "device_trace writes one Chrome trace")
+    if dev.type == "cuda":
+        check("projection_kernel" in text, "the facade call's trace names K1's kernel (projection_kernel)")
+
+
 def linescan_app_inputs(directory, views=6):
     """The linescan_calibration app's inputs: the committed example, a
     RANSAC variant of it, and a Scheimpflug input written from row 5S's
@@ -1942,9 +2177,7 @@ def main() -> int:
     obj, uv, intr_gt = make_problems(b)
     obj_d = torch.as_tensor(obj, device=dev)
     uv_d = torch.as_tensor(uv, device=dev)
-    opts = IntrinsicsOptimOptions(
-        core=OptimOptions(max_iterations=40, epsilon=1e-9, compute_covariance=True)
-    )
+    opts = FACADE_OPTS
     zero_launches()
     t0 = time.perf_counter()
     _, _, out, rms_check = intrinsics_facade_batch(obj_d, uv_d, opts=opts)
@@ -2013,6 +2246,9 @@ def main() -> int:
     semidlt_phase(dev, card)
     stereo_scheimpflug_phase(dev, card)
     bundle_scheimpflug_phase(dev, card)
+    rms_launches += mesh_phase(dev, card)
+    mixed_phase(dev, card)
+    trace_phase(dev, card)
     print(f"[smoke] end-to-end phases done {time.perf_counter() - start!r} s after the start")
 
     # last, so that the profiler's device tracing (CUPTI) is off during the

@@ -12,7 +12,9 @@ the Scheimpflug intrinsics_batch, and the variable-projection and
 any-model solvers (the distortion fits, the linear intrinsics,
 planar_pose_batch, optimize_planar_pose, semi-DLT, the Scheimpflug
 extrinsics in each Jacobian mode and the Scheimpflug bundle) on the card
-against the CPU.
+against the CPU; a mesh of two shards on one card against the unsharded
+call (and K1 launched once per shard), and the "mixed" precision's float32
+phase on the card.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -20,6 +22,9 @@ file imports no JAX, so it also runs where JAX is not installed:
 """
 
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,11 +39,12 @@ from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import intrinsics_linear, ransac, se3
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
+from calibration_tpu_torch.optim import lm_schur
 from calibration_tpu_torch.optim import optimize_bundle_device, optimize_extrinsics_device, optimize_planar_pose
 from calibration_tpu_torch.optim import optimize_intrinsics_semidlt, optimize_intrinsics_semidlt_device
 from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
-from calibration_tpu_torch.parallel import linescan_ransac_batch, planar_pose_batch
+from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh, planar_pose_batch
 from torch_helpers import assert_reports_match
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +533,70 @@ def test_scheimpflug_extrinsics_batch_and_bundle_on_card_match_cpu(cuda_device):
                 for d in (cuda_device, "cpu"))
     assert bool(gpu[0].success.all()) and bool(gpu[5].all())
     _lm_equal(gpu[0], cpu[0])
+
+
+def _facade_set(device, b=7):
+    obj, uv, _ = chip_smoke.make_problems(b)
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, compute_covariance=True))
+    return torch.as_tensor(obj, device=device), torch.as_tensor(uv, device=device), opts
+
+
+def test_two_shard_mesh_of_one_card_gives_the_unsharded_result(cuda_device):
+    """7 cameras padded to 8, two shards on cuda:0: the unsharded
+    single-phase result, gathered on cuda:0."""
+    obj, uv, opts = _facade_set(cuda_device)
+    mesh = make_mesh([cuda_device] * 2)
+    _, _, got, rms = intrinsics_facade_batch(obj, uv, opts=opts, mesh=mesh)
+    _, _, want, rms_one = intrinsics_facade_batch(obj, uv, opts=opts, two_phase=False)
+    assert got[1].shape == (7, 10) and got[1].device == mesh.devices[0]
+    for name in ("iterations", "linearizations", "termination", "success"):
+        assert torch.equal(getattr(got[0], name), getattr(want[0], name)), name
+    torch.testing.assert_close(got[0].cost, want[0].cost, rtol=1e-10, atol=0)
+    torch.testing.assert_close(rms, rms_one, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_sharded_facade_launches_k1_once_per_shard(cuda_device, shards):
+    obj, uv, opts = _facade_set(cuda_device)
+    for mode in pr.launches:
+        pr.launches[mode] = 0
+    intrinsics_facade_batch(obj, uv, opts=opts, mesh=make_mesh([cuda_device] * shards))
+    torch.cuda.synchronize()
+    assert pr.launches == {"residuals": 0, "rms": shards}
+
+
+def test_mixed_runs_its_coarse_phase_in_float32_on_card(cuda_device, monkeypatch):
+    """The first Schur LM of "mixed" runs on float32 card tensors; the
+    polish ends within 1e-8 of the float64 solve's cost."""
+    obj, uv, opts = _facade_set(cuda_device, b=4)
+    seen = []
+    real = lm_schur.lm_core_schur
+
+    def spy(res, jac, xg0, *args, **kwargs):
+        seen.append((xg0.dtype, xg0.device.type))
+        return real(res, jac, xg0, *args, **kwargs)
+
+    monkeypatch.setattr(lm_schur, "lm_core_schur", spy)
+    _, mixed = intrinsics_batch(obj, uv, opts=opts, precision="mixed", two_phase=False)
+    assert seen == [(torch.float32, "cuda"), (torch.float64, "cuda")]
+    _, f64 = intrinsics_batch(obj, uv, opts=opts, two_phase=False)
+    assert bool(mixed[0].success.all())
+    torch.testing.assert_close(mixed[0].cost, f64[0].cost, rtol=1e-8, atol=0)
+
+
+def test_a_fresh_process_may_start_on_a_mesh(cuda_device):
+    """The first linalg call of a process on a card loads PyTorch's CUDA
+    linear-algebra kernels, which is not thread-safe: a process whose first
+    solve is a mesh of four shards must not race it."""
+    code = (
+        "import torch, chip_smoke\n"
+        "from calibration_tpu_torch.parallel import intrinsics_facade_batch, make_mesh\n"
+        "obj, uv, _ = chip_smoke.make_problems(8, views=4, rows=5, cols=7)\n"
+        "out = intrinsics_facade_batch(torch.as_tensor(obj, device='cuda'), torch.as_tensor(uv, device='cuda'),\n"
+        "                              opts=chip_smoke.FACADE_OPTS, mesh=make_mesh(['cuda:0'] * 4))\n"
+        "assert bool(out[2][0].success.all())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent.parent,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+

@@ -342,13 +342,14 @@ def test_optimize_extrinsics_host_wrapper_matches_jax():
 
 
 def test_unported_paths_raise():
-    """A device mesh is not ported (every registry model is: the
+    """A mesh that is not the port's is refused (the port's mesh is
+    tests/test_torch_sharding.py; every registry model is taken: the
     Scheimpflug solves are tests/test_torch_scheimpflug_solvers.py); a
     model outside the registry and an unknown solver name are errors (the
     dense solver is ported: test_torch_lm_dense.py)."""
     obj, uv, mask, cams0, c0, r0, _ = rigs(1, 4, 2)
     args = (t64(obj), t64(uv), t64(cams0), t64(c0), t64(r0))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tbatched.extrinsics_batch(*args, mesh=object())
     with pytest.raises(KeyError, match="Unknown camera model"):
         tbatched.extrinsics_batch(*args, model_name="fisheye")

@@ -167,7 +167,7 @@ def test_handeye_batch_matches_jax(rot_residual, analytic, huber):
         want = jax.device_get(jax.vmap(
             lambda p, x0: jhe.optimize_handeye_device(p, x0, jopts, analytic_jac=False, rot_residual=rot_residual)
         )(pairs_j, init_j))
-        pairs_t = convert.motion_pairs(jax.device_get(pairs_j))
+        pairs_t = convert.motion_pairs(jax.device_get(pairs_j), "cpu")
         got = the.optimize_handeye_device(pairs_t, t64(init_j), topts, analytic_jac=False, rot_residual=rot_residual)
     _assert_solves_equal(got, want)
     assert bool(got[0].success.all()) and bool(got[3].all())

@@ -2,11 +2,13 @@
 parameters, by name and in order, so a call written for the reference
 binds every argument to the same parameter in the port. Parameters only
 the port has come after the reference's and are keyword-only. A value the
-port does not honour yet (a camera model a path does not take, a precision
-other than "f64", a device mesh, an unknown ``jac_mode``) raises
-``NotImplementedError`` ("not ported yet") before any work. The intrinsics,
-line-scan, extrinsics and bundle solvers take every registry model;
-bundle_batch takes the pinhole model only, as the reference's.
+port does not honour (a camera model a path does not take, an unknown
+``jac_mode``) raises ``NotImplementedError`` ("not ported yet") before any
+work. The intrinsics, line-scan, extrinsics and bundle solvers take every
+registry model; bundle_batch takes the pinhole model only, as the
+reference's. Every batch entry point takes a port mesh
+(``parallel.make_mesh``) and refuses a JAX one; the intrinsics solvers take
+"mixed" and "mixed_jac", the bundle solver "mixed".
 
 The port's ``*_device`` functions keep a leading batch axis where the
 reference's take one problem: only names and order are compared."""
@@ -18,41 +20,55 @@ import numpy as np
 import pytest
 import torch
 
+from calibration_tpu.models import camera_matrix as jcm
 from calibration_tpu.models import distortion as jdist
 from calibration_tpu.models import pinhole as jpin
 from calibration_tpu.models import scheimpflug as jsch
 from calibration_tpu.models.registry import SCHEIMPFLUG
 from calibration_tpu.ops import intrinsics_linear as jlin
+from calibration_tpu.ops import linalg as jlinalg
 from calibration_tpu.ops import linescan as jls
+from calibration_tpu.ops import planarpose as jplanar
 from calibration_tpu.ops import planefit as jpf
 from calibration_tpu.ops import ransac as jransac
+from calibration_tpu.ops import se3 as jse3
 from calibration_tpu.optim import bundle as jbundle
 from calibration_tpu.optim import extrinsics as jext
 from calibration_tpu.optim import handeye as jhe
 from calibration_tpu.optim import homography as jhom
 from calibration_tpu.optim import intrinsics as jintr
 from calibration_tpu.optim import lm as jlm
+from calibration_tpu.optim import lm_schur as jschur
 from calibration_tpu.optim import planarpose as jpp
 from calibration_tpu.optim import semidlt as jsd
 from calibration_tpu.parallel import batched as jbatched
+from calibration_tpu.parallel import sharding as jsharding
 from calibration_tpu.pipeline.facades import linescan as jlsf
+from calibration_tpu.utils import profiling as jprof
+from calibration_tpu_torch.models import camera_matrix as tcm
 from calibration_tpu_torch.models import distortion as tdist
 from calibration_tpu_torch.models import pinhole as tpin
 from calibration_tpu_torch.models import scheimpflug as tsch
 from calibration_tpu_torch.ops import intrinsics_linear as tlin
+from calibration_tpu_torch.ops import linalg as tlinalg
 from calibration_tpu_torch.ops import linescan as tls
+from calibration_tpu_torch.ops import planarpose as tplanar
 from calibration_tpu_torch.ops import planefit as tpf
 from calibration_tpu_torch.ops import ransac as transac
+from calibration_tpu_torch.ops import se3 as tse3
 from calibration_tpu_torch.optim import bundle as tbundle
 from calibration_tpu_torch.optim import extrinsics as text
 from calibration_tpu_torch.optim import handeye as the
 from calibration_tpu_torch.optim import homography as thom
 from calibration_tpu_torch.optim import intrinsics as tintr
 from calibration_tpu_torch.optim import lm as tlm
+from calibration_tpu_torch.optim import lm_schur as tschur
 from calibration_tpu_torch.optim import planarpose as tpp
 from calibration_tpu_torch.optim import semidlt as tsd
 from calibration_tpu_torch.parallel import batched as tbatched
+from calibration_tpu_torch.parallel import sharding as tsharding
 from calibration_tpu_torch.pipeline.facades import linescan as tlsf
+from calibration_tpu_torch.utils import profiling as tprof
 
 PAIRS = {
     "optimize_intrinsics_device": (tintr, jintr),
@@ -115,6 +131,26 @@ PAIRS = {
     "optimize_intrinsics_semidlt_device": (tsd, jsd),
     "optimize_intrinsics_semidlt": (tsd, jsd),
     "planar_pose_batch": (tbatched, jbatched),
+    "make_mesh": (tsharding, jsharding),
+    "mesh_devices": (tsharding, jsharding),
+    "batch_sharding": (tsharding, jsharding),
+    "shard_batch": (tsharding, jsharding),
+    "pad_batch": (tsharding, jsharding),
+    "make_lm_step": (tlm, jlm),
+    "lm_cost_trace": (tprof, jprof),
+    "device_trace": (tprof, jprof),
+    "camera_matrix.from_matrix": (tcm, jcm),
+    "pinhole.kmtx_of": (tpin, jpin),
+    "pinhole.dist_of": (tpin, jpin),
+    "pinhole.distort": (tpin, jpin),
+    "pinhole.undistort_pt": (tpin, jpin),
+    "se3_identity": (tse3, jse3),
+    "pose_to_array": (tse3, jse3),
+    "array_to_pose": (tse3, jse3),
+    "homography_consistency_fro": (tplanar, jplanar),
+    "full_jacobian": (tschur, jschur),
+    "solve_llsq": (tlinalg, jlinalg),
+    "min_singular_value": (tlinalg, jlinalg),
 }
 
 
@@ -173,26 +209,9 @@ def _linescan_args(b=(1,)):
 
 SCHEIM = SCHEIMPFLUG.name
 UNPORTED = {
-    "intrinsics_device_mixed": (tintr.optimize_intrinsics_device, _intr_args, {"precision": "mixed"}),
-    "intrinsics_device_mixed_jac": (tintr.optimize_intrinsics_device, _intr_args, {"precision": "mixed_jac"}),
-    "intrinsics_host_mixed": (tintr.optimize_intrinsics, lambda: _intr_args(()), {"precision": "mixed"}),
-    "linescan_batch_mesh": (tbatched.linescan_batch, _linescan_args, {"mesh": _mesh()}),
-    "linescan_ransac_batch_mesh": (tbatched.linescan_ransac_batch, _linescan_args, {"mesh": _mesh()}),
     "extrinsics_device_jac_mode": (text.optimize_extrinsics_device, _extr_args, {"jac_mode": "blocked"}),
     "extrinsics_device_jac_mode_model": (text.optimize_extrinsics_device, _extr_args,
                                          {"jac_mode": "per_view", "model": SCHEIMPFLUG}),
-    "bundle_device_mixed": (tbundle.optimize_bundle_device, _bundle_args, {"precision": "mixed"}),
-    "bundle_device_mixed_jac": (tbundle.optimize_bundle_device, _bundle_args, {"precision": "mixed_jac"}),
-    "intrinsics_batch_mixed": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
-    "intrinsics_batch_mesh": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
-    "facade_batch_mixed": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"precision": "mixed"}),
-    "facade_batch_mesh": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], {"mesh": _mesh()}),
-    "extrinsics_batch_mesh": (tbatched.extrinsics_batch, _extr_args, {"mesh": _mesh()}),
-    "homography_batch_mesh": (tbatched.homography_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2)), {"mesh": _mesh()}),
-    "handeye_batch_mesh": (tbatched.handeye_batch, lambda: (_z(1, 3, 4, 4), _z(1, 3, 4, 4)), {"mesh": _mesh()}),
-    "bundle_batch_mesh": (tbatched.bundle_batch, _bundle_args, {"mesh": _mesh()}),
-    "planar_pose_batch_mesh": (tbatched.planar_pose_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2), _z(1, 5)),
-                               {"mesh": _mesh()}),
 }
 
 
@@ -201,6 +220,67 @@ def test_unported_values_raise(case):
     fn, args, kwargs = UNPORTED[case]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fn(*args(), **kwargs)
+
+
+# every batch entry point takes a port mesh; these calls raised "not ported
+# yet" before. The all-zero inputs never converge: a budget of 3 keeps them
+# short.
+_CORE = tintr.OptimOptions(max_iterations=3, compute_covariance=False)
+_INTR_OPTS = {"opts": tintr.IntrinsicsOptimOptions(core=_CORE)}
+MESH_TAKEN = {
+    "linescan_batch_mesh": (tbatched.linescan_batch, _linescan_args, {}),
+    "linescan_ransac_batch_mesh": (tbatched.linescan_ransac_batch, _linescan_args, {}),
+    "intrinsics_batch_mesh": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], _INTR_OPTS),
+    "facade_batch_mesh": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], _INTR_OPTS),
+    "extrinsics_batch_mesh": (tbatched.extrinsics_batch, _extr_args, {"opts": text.ExtrinsicOptions(core=_CORE)}),
+    "homography_batch_mesh": (tbatched.homography_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2)), {"options": _CORE}),
+    "handeye_batch_mesh": (tbatched.handeye_batch, lambda: (_z(1, 3, 4, 4), _z(1, 3, 4, 4)), {"options": _CORE}),
+    "bundle_batch_mesh": (tbatched.bundle_batch, _bundle_args, {"opts": tbundle.BundleOptions(core=_CORE)}),
+    "planar_pose_batch_mesh": (tbatched.planar_pose_batch, lambda: (_z(1, 6, 2), _z(1, 6, 2), _z(1, 5)),
+                               {"options": _CORE}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_TAKEN))
+def test_mesh_is_taken(case):
+    """A one-device CPU mesh gives what mesh=None gives, NaN for NaN, on the
+    same tiny inputs."""
+    fn, args, kwargs = MESH_TAKEN[case]
+    got = fn(*args(), mesh=tsharding.make_mesh(["cpu"]), **kwargs)
+    want = fn(*args(), **kwargs)
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_jax_mesh_is_refused():
+    with pytest.raises(TypeError, match="make_mesh"):
+        tbatched.homography_batch(_z(1, 6, 2), _z(1, 6, 2), mesh=_mesh())
+
+
+# the intrinsics solvers take "mixed" and "mixed_jac", the bundle solver
+# "mixed" (tests/test_torch_mixed.py holds them to JAX); these calls raised
+# "not ported yet" before. The bundle solver refuses "mixed_jac", which the
+# reference takes and ignores.
+PRECISION_TAKEN = {
+    "intrinsics_device_mixed": (tintr.optimize_intrinsics_device, _intr_args, "mixed", _INTR_OPTS),
+    "intrinsics_device_mixed_jac": (tintr.optimize_intrinsics_device, _intr_args, "mixed_jac", _INTR_OPTS),
+    "intrinsics_host_mixed": (tintr.optimize_intrinsics, lambda: _intr_args(()), "mixed", _INTR_OPTS),
+    "bundle_device_mixed": (tbundle.optimize_bundle_device, _bundle_args, "mixed",
+                            {"opts": tbundle.BundleOptions(core=_CORE)}),
+    "bundle_device_mixed_jac": (tbundle.optimize_bundle_device, _bundle_args, "mixed_jac", {}),
+    "intrinsics_batch_mixed": (tbatched.intrinsics_batch, lambda: _intr_args()[:2], "mixed", _INTR_OPTS),
+    "facade_batch_mixed": (tbatched.intrinsics_facade_batch, lambda: _intr_args()[:2], "mixed", _INTR_OPTS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRECISION_TAKEN))
+def test_mixed_precisions_are_taken(case):
+    fn, args, precision, kwargs = PRECISION_TAKEN[case]
+    if case == "bundle_device_mixed_jac":
+        with pytest.raises(ValueError, match="mixed_jac"):
+            fn(*args(), precision=precision)
+    else:
+        assert fn(*args(), precision=precision, **kwargs) is not None
 
 
 def test_honoured_reference_values_are_accepted():
@@ -222,7 +302,7 @@ def test_honoured_reference_values_are_accepted():
                "linescan": {"models": tbatched.LINESCAN_MODELS}}
     for kwargs in callers.values():
         for model in (PINHOLE, PINHOLE.name, "pinhole", tintr.PINHOLE):
-            assert check_ported(model, "f64", None, **kwargs) is treg.PINHOLE
+            assert check_ported(model, **kwargs) is treg.PINHOLE
 
 
 # the intrinsics solvers take the Scheimpflug model (the reference's spec

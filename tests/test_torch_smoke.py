@@ -1,7 +1,8 @@
 """CPU rehearsal of ``chip_smoke.py``'s app, stereo, pipeline, homography,
 hand-eye, bundle, four-stage pipeline, line-scan (5L, 5R, 5S), Scheimpflug
 intrinsics (2S, 2T), line-scan app, planar-pose, semi-DLT and Scheimpflug
-stereo and bundle phases, which otherwise run only on the card: the same generators at a small size (4 sensors, 4 rigs, 4 or 64
+stereo and bundle, mesh, mixed-precision and cost-trace phases, which
+otherwise run only on the card: the same generators at a small size (4 sensors, 4 rigs, 4 or 64
 lanes), the apps and the solves on the CPU, and the phases' own checks, so
 a wrong path, shape or threshold shows here before a chip run.
 Also: the script refuses to run without a card, and outside the
@@ -370,3 +371,28 @@ def test_generators_restate_the_benchmark_sets(which):
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+NEW_PHASES = {
+    # the mesh phase on CPU meshes: one device for "every card", then 4
+    # shards; config 2 at 6 cameras and planar pose at 9 views pad to 8 and 12
+    "mesh": ("mesh_phase", (("FLEET", 4), ("MESH_FACADE_CAMERAS", 6), ("MESH_BUNDLE_RIGS", 6),
+                            ("PLANAR_CAMERAS", 1), ("MESH_PLANAR_VIEWS", 9))),
+    "mixed": ("mixed_phase", (("MIXED_CAMERAS", 4), ("BUNDLE_RIGS", 4))),
+    "trace": ("trace_phase", (("HOMOG_LANES", 16), ("FLEET", 4))),
+}
+
+
+@pytest.mark.parametrize("phase", sorted(NEW_PHASES))
+def test_mesh_mixed_and_trace_phases_check_pass_on_cpu(monkeypatch, phase):
+    """The three phases at small size: every lane converged within the
+    truth bounds, sharded results equal to the unsharded single-phase
+    call, the mixed precisions' costs within 1e-7 of f64, the cost trace
+    equal to lm_core's and never rising, the device trace written (the K1
+    launch checks are the card's)."""
+    name, sizes = NEW_PHASES[phase]
+    for attr, value in sizes + (("WARM_CALLS", 2),):
+        monkeypatch.setattr(chip_smoke, attr, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    getattr(chip_smoke, name)(torch.device("cpu"), "cpu")
+

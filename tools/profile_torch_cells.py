@@ -30,7 +30,11 @@ the A/B of the VarPro Jacobian (planar pose and semi-DLT, each module's
 ``JACOBIAN``: one dual-number pass, ``lm.dual_jacobian_fn``, against
 ``lm.tangent_jacobian``'s ``vmap(jacfwd)``), and of the manifold
 retraction (semi-DLT and the Scheimpflug stereo cell: runs of one block
-kind retracted together against block by block). Then
+kind retracted together against block by block), and the mesh sweep
+(config 2 at B = 254 through ``intrinsics_facade_batch`` on 4 shards of
+one card: a host thread per shard, as the port runs it; the same with the
+interpreter's switch interval at 0.1 ms; the four shards one after
+another on one thread; and the unsharded single-phase call). Then
 each cell's warm wall times (host clock,
 synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
@@ -53,6 +57,7 @@ import statistics
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -70,7 +75,8 @@ from calibration_tpu_torch.optim import lm_schur, optimize_bundle_device, planar
 from calibration_tpu_torch.optim import semidlt as semidlt_mod  # noqa: E402
 from calibration_tpu_torch.optim.manifold import ProductManifold  # noqa: E402
 from calibration_tpu_torch.parallel import batched, bundle_batch, handeye_batch, homography_batch  # noqa: E402
-from calibration_tpu_torch.parallel import intrinsics_batch, linescan_batch, linescan_ransac_batch  # noqa: E402
+from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch  # noqa: E402
+from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh  # noqa: E402
 
 
 def synced(fn):
@@ -250,13 +256,55 @@ def varpro_ab(name, fn, module, repeats):
     print(f"[profile] {name} VarPro jacobian: max relative cost difference dual vs vmap {rel!r}")
 
 
+@contextlib.contextmanager
+def one_thread_pool():
+    """``batched._on_mesh`` with a pool of one thread: the shards one after
+    another (the mesh sweep's arm)."""
+    batched.ThreadPoolExecutor = lambda max_workers: ThreadPoolExecutor(max_workers=1)
+    try:
+        yield
+    finally:
+        batched.ThreadPoolExecutor = ThreadPoolExecutor
+
+
+@contextlib.contextmanager
+def switch_interval(seconds):
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(seconds)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(prev)
+
+
+def mesh_sweep(name, sharded, unsharded, repeats):
+    """Warm walls of a 4-shard mesh call with a thread per shard (the
+    port), with a 0.1 ms switch interval, with one thread, and of the
+    unsharded call, interleaved A B C D D C B A; prints the median per
+    arm."""
+    arms = {"threads": (sharded, contextlib.nullcontext), "threads, 0.1 ms switch": (
+        sharded, lambda: switch_interval(1e-4)), "one thread": (sharded, one_thread_pool),
+        "unsharded single phase": (unsharded, contextlib.nullcontext)}
+    times = {k: [] for k in arms}
+    for key, (fn, ctx) in arms.items():
+        with ctx():
+            fn()  # first call
+    for order in range(repeats):
+        for key in (arms if order % 2 == 0 else list(arms)[::-1]):
+            fn, ctx = arms[key]
+            with ctx():
+                times[key].append(synced(fn))
+    for key in arms:
+        print(f"[profile] {name} mesh {key}: median {statistics.median(times[key])!r} s, all {times[key]!r}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=7)
     parser.add_argument("--out", default=str(ROOT / "build" / "profile"))
     parser.add_argument("--cells", default="", help="comma-separated cell names (default all)")
     parser.add_argument("--sweeps", default="", help="comma-separated sweeps: homography, bundle, "
-                        "scheimpflug-fixed, scheimpflug-free, jacobian, varpro, retract (default all)")
+                        "scheimpflug-fixed, scheimpflug-free, jacobian, varpro, retract, mesh (default all)")
     args = parser.parse_args()
     picked = lambda arg, name: not arg or name in arg.split(",")  # noqa: E731
     if not torch.cuda.is_available():
@@ -327,6 +375,13 @@ def main() -> int:
         retract_ab(f"semi-DLT B={chip_smoke.SEMIDLT_CAMERAS}", semidlt, max(3, args.repeats // 2))
         retract_ab(f"Scheimpflug stereo B={chip_smoke.STEREO_RIGS}", stereo_s, args.repeats)
 
+    obj, uv, _ = chip_smoke.make_problems(chip_smoke.MESH_FACADE_CAMERAS)
+    facade = functools.partial(intrinsics_facade_batch, *on_card((obj, uv)), opts=chip_smoke.FACADE_OPTS)
+    mesh4 = functools.partial(facade, mesh=make_mesh([dev] * chip_smoke.MESH_SHARDS))
+    if picked(args.sweeps, "mesh"):
+        mesh_sweep(f"config 2 B={chip_smoke.MESH_FACADE_CAMERAS}, {chip_smoke.MESH_SHARDS} shards of one card",
+                   mesh4, functools.partial(facade, two_phase=False), args.repeats)
+
     with tempfile.TemporaryDirectory() as tmp:
         fleet = chip_smoke.write_handeye_fleet(Path(tmp), chip_smoke.HE_PIPELINE_RIGS)
         handeye_input = chip_smoke.pipeline_variant(fleet["input_path"], "handeye")
@@ -346,7 +401,7 @@ def main() -> int:
             ("linescan-b1024", line), ("linescan-ransac-b256", line_r), ("linescan-scheimpflug-b256", line_s),
             ("scheimpflug-b256", scheim["2S"]), ("scheimpflug-tilt-b256", scheim["2T"]),
             ("planar-pose-b2560", planar), ("semidlt-b256", semidlt), ("stereo-scheimpflug-b128", stereo_s),
-            ("bundle-scheimpflug-b128", bundle_s),
+            ("bundle-scheimpflug-b128", bundle_s), ("mesh-4-shards-config2-b254", mesh4),
         ) if picked(args.cells, name)]
         # every timed call before the first profiler (it slows later launches)
         for name, fn in cells:
