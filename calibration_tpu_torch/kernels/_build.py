@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
-_load_lock = threading.Lock()  # the shards of a mesh may all load it at once
+_load_lock = threading.Lock()  # a mesh's device threads may all load it at once
 
 
 def _nvcc() -> str:

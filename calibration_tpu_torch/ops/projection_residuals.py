@@ -32,7 +32,7 @@ import torch
 from ..kernels import _build
 
 launches = {"residuals": 0, "rms": 0}
-_launches_lock = threading.Lock()  # a mesh launches from one thread per shard
+_launches_lock = threading.Lock()  # a mesh launches from one thread per device
 
 _SCALARS = {torch.float32: 0, torch.float64: 1}
 _MASKS = {torch.bool: 0, torch.uint8: 0, torch.float32: 1, torch.float64: 2}

@@ -41,7 +41,7 @@ from . import homography as H
 from . import planefit
 
 rounds: collections.Counter = collections.Counter()
-_rounds_lock = threading.Lock()  # a mesh runs one thread per shard
+_rounds_lock = threading.Lock()  # a mesh runs one thread per device
 
 
 @dataclasses.dataclass(frozen=True)

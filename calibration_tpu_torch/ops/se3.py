@@ -150,7 +150,7 @@ def make_se3(r, t):
     return torch.cat([top, bottom], dim=-2)
 
 
-def se3_identity(dtype=torch.float64, *, device=None):
+def se3_identity(dtype=torch.float64, *, device):
     return torch.eye(4, dtype=dtype, device=device)
 
 

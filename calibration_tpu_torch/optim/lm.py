@@ -41,9 +41,10 @@ _MU_MAX = 1e32
 
 # PyTorch keeps forward-mode AD levels per process, not per thread: two
 # threads inside ``forward_ad.dual_level`` (or ``torch.func.jacfwd``, which
-# enters one) at once break each other's levels. A mesh solves each shard
-# on a thread of its own, so every forward-mode Jacobian of the port holds
-# this lock; the rest of a solve runs unserialised.
+# enters one) at once break each other's levels. A mesh over distinct
+# devices solves each device's shards on a thread of its own, so every
+# forward-mode Jacobian of the port holds this lock; the rest of a solve
+# runs unserialised.
 FORWARD_AD_LOCK = threading.Lock()
 
 

@@ -8,8 +8,8 @@ leading problem axis and runs eagerly on the tensors' device; ``lax.cond``
 between phases becomes a host decision. Every entry point takes the
 reference's parameters in its order. With a ``mesh`` (``sharding.Mesh``)
 the batch is padded to the mesh size, split, each shard solved on its own
-device and host thread, and the results gathered on the mesh's first
-device (``_on_mesh``); as in the reference, a mesh turns the phased
+device (one host thread per distinct device), and the results gathered on
+the mesh's first device (``_on_mesh``); as in the reference, a mesh turns the phased
 schedules off unless ``two_phase`` asks for them. Camera models a path
 does not take raise ``NotImplementedError`` (``check_ported``: the
 intrinsics, extrinsics and line-scan paths take every registry model,
@@ -132,35 +132,57 @@ _cuda_linalg_lock = threading.Lock()
 
 
 @functools.cache
-def _load_cuda_linalg() -> None:
+def _load_cuda_linalg(device) -> None:
     """PyTorch loads its CUDA linear-algebra kernels at the process's first
     linalg call on a card, and that first call is not thread-safe: shards
     making it together fail with "lazy wrapper should be called at most
-    once" (measured on an H100). One small call before the shards' threads
-    start loads them."""
-    torch.linalg.cholesky(torch.ones((1, 1), device="cuda"))
+    once" (measured on an H100). One small call on ``device`` before the
+    shards' threads start loads them."""
+    torch.linalg.cholesky(torch.ones((1, 1), device=device))
+
+
+def _by_device(devices) -> list:
+    """The mesh positions of each distinct device of ``devices``, in the
+    order the devices first appear."""
+    groups = {}
+    for i, d in enumerate(devices):
+        groups.setdefault(d, []).append(i)
+    return list(groups.values())
 
 
 def _on_mesh(fn, mesh, args, **kwargs):
     """``fn(*args, **kwargs)`` solved shard by shard over ``mesh``: ``args``
     (the batched arguments) padded and split by ``_maybe_shard``, each
-    shard's call on a host thread of its own under its CUDA device, the
-    outputs gathered on ``mesh.devices[0]`` and the padding trimmed. The
-    problems are independent, so no shard waits for another; forward-mode
-    Jacobians take turns (``lm.FORWARD_AD_LOCK``)."""
+    shard's call under its CUDA device, the outputs gathered on
+    ``mesh.devices[0]`` and the padding trimmed. The shards of one device
+    are solved in turn on one host thread: every call is host-bound, and
+    on an H100 four shards of one card took 4.5x as long on four threads
+    as in turn on one (GIL handoffs at every torch operation). Distinct
+    devices get a thread each; there the forward-mode Jacobians take
+    turns (``lm.FORWARD_AD_LOCK``), and the launch and RANSAC counters and
+    the first library loads are locked."""
     shards, real_b = _maybe_shard(args, mesh)
-    if any(d.type == "cuda" for d in mesh.devices):
-        with _cuda_linalg_lock:
-            _load_cuda_linalg()
+    devices, groups = mesh.devices, _by_device(mesh.devices)
 
-    def run(device, shard):
+    def run(idx):
+        device = devices[idx[0]]
         with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-            return fn(*shard, **kwargs)
+            return [fn(*shards[i], **kwargs) for i in idx]
 
-    with ThreadPoolExecutor(max_workers=mesh.size) as pool:
-        futures = [pool.submit(run, d, shard) for d, shard in zip(mesh.devices, shards)]
-        outs = [f.result() for f in futures]
-    return _trim(_gather(outs, mesh.devices[0]), real_b)
+    if len(groups) == 1:
+        outs = run(groups[0])
+    else:
+        cuda = [d for d in devices if d.type == "cuda"]
+        if cuda:
+            with _cuda_linalg_lock:
+                _load_cuda_linalg(cuda[0])
+        with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+            done = list(zip(groups, pool.map(run, groups)))
+        outs = [None] * mesh.size
+        for idx, group_outs in done:
+            for i, o in zip(idx, group_outs):
+                outs[i] = o
+    return _trim(_gather(outs, devices[0]), real_b)
 
 
 def _phase_budget(total: int, caps: tuple) -> tuple:

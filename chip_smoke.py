@@ -10,8 +10,9 @@
 3. Holds both modes of K1 (``projection_residuals_f32``, residual mode;
    ``projection_rms_f32``, the fused QA recheck) against their plain
    versions on the card, from float32 (bool and float32 masks) and float64
-   inputs, at the shapes the facade (2560 x 88) and the pipeline's
-   intrinsics stage (1280 x 88) give it and at a ragged one, each with an
+   inputs, at the shapes the facade (2560 x 88), the pipeline's
+   intrinsics stage (1280 x 88) and a shard of the 4-shard mesh (640 x 88)
+   give it and at a ragged one, each with an
    all-masked view: within KERNEL_ATOL_PX of plain float64, the RMS within
    RMS_RTOL_F32 of plain float32, masked residuals exactly 0.
 4. Drives the main path once: ``intrinsics_facade_batch`` on the bench.py
@@ -128,10 +129,13 @@
    (B = 254, padded to 256), config 5 through ``bundle_batch`` (B = 126)
    and planar pose (2558 views) on the 4-shard mesh: every lane
    converged, the unpadded outputs on the mesh's first device, K1
-   launched once per shard on the facade calls, final cost within 1e-10
+   launched once per shard on the facade calls and its gathered RMS
+   within RMS_RTOL_F32 of plain float32 on the gathered solution, final
+   cost within 1e-10
    relative of the unsharded single-phase call on the same inputs with
    the same counters (planar pose: linearizations and success), warm
-   medians of both. With one card visible, multi-card scaling is
+   medians of both (MESH_WARM_CALLS on the 4-shard cells, whose shards
+   run in turn on one thread). With one card visible, multi-card scaling is
    reported as not measured.
 22. The precisions: config 2 (B = 256, phased) through ``intrinsics_batch``
    in "f64", "mixed" and "mixed_jac", config 5 (B = 128) through
@@ -318,6 +322,7 @@ MESH_FACADE_CAMERAS = 254  # config 2 on the 4-shard mesh: pads to 256
 MESH_BUNDLE_RIGS = 126  # config 5 on the 4-shard mesh: pads to 128
 MESH_PLANAR_VIEWS = 2558  # planar pose on the 4-shard mesh: pads to 2560
 MESH_COST_RTOL = 1e-10  # sharded vs unsharded single-phase final cost, the same card
+MESH_WARM_CALLS = 3  # warm calls per arm of the 4-shard cells
 MIXED_CAMERAS = 256  # config 2 through intrinsics_batch in each precision
 MIXED_COST_RTOL = 1e-7  # mixed / mixed_jac vs f64 final cost, per lane
 STEREO_SCHEIM_OPTS = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=False),
@@ -426,8 +431,9 @@ def old_qa_pass(c_se3_t, intrs, obj_xy, img_uv, mask):
 
 
 # (b, v, n) of the facade and the app (256 cameras x 10 views), of the
-# pipeline's intrinsics stage (128 cameras x 10 views) and a ragged one
-QA_SHAPES = ((256, 10, 88), (2 * PIPELINE_RIGS, 10, 88), (19, 1, 150))
+# pipeline's intrinsics stage (128 cameras x 10 views), a ragged one and a
+# shard of the mesh phase's 4-shard facade (64 cameras x 10 views)
+QA_SHAPES = ((256, 10, 88), (2 * PIPELINE_RIGS, 10, 88), (19, 1, 150), (64, 10, 88))
 # input and mask dtypes: f32 with a bool mask and with an f32 mask, f64
 # with an f64 mask (the facade's)
 QA_DTYPES = ((torch.float32, torch.bool), (torch.float32, torch.float32), (torch.float64, torch.float64))
@@ -438,7 +444,7 @@ def kernel_phase(dev):
     QA_SHAPES shape and QA_DTYPES pair. Returns the worst |kernel - plain
     f64| in px of each mode."""
     worst = {"residuals": 0.0, "rms": 0.0}
-    for (b, v, n), seed in zip(QA_SHAPES, (11, 13, 5)):
+    for (b, v, n), seed in zip(QA_SHAPES, (11, 13, 5, 17)):
         for dtype, mask_dtype in QA_DTYPES:
             what = f"{b * v}x{n} {str(dtype)[6:]}/{str(mask_dtype)[6:]} mask"
             args = qa_inputs(b, v, n, seed, dtype, mask_dtype, dev)
@@ -1848,11 +1854,11 @@ def bundle_scheimpflug_phase(dev, card):
     return med
 
 
-def interleaved_medians(runs, dev):
-    """{name: (median s, warm calls)} of WARM_CALLS rounds in which every
+def interleaved_medians(runs, dev, calls=WARM_CALLS):
+    """{name: (median s, warm calls)} of ``calls`` rounds in which every
     run of ``runs`` ({name: fn}) is called once, in turn."""
     walls = {name: [] for name in runs}
-    for _ in range(WARM_CALLS):
+    for _ in range(calls):
         for name, run in runs.items():
             walls[name].append(timed(run, dev)[1])
     return {name: (float(np.median(w)), w) for name, w in walls.items()}
@@ -1870,12 +1876,13 @@ def mesh_parity(got, want, what, counters=("iterations", "termination")):
           f"{what}: cost within {MESH_COST_RTOL} relative of the unsharded call, the same {' and '.join(counters)}")
 
 
-def mesh_facade_cell(dev, card, mesh, b, what):
+def mesh_facade_cell(dev, card, mesh, b, what, calls):
     """Config 2's first ``b`` cameras through intrinsics_facade_batch on
     ``mesh``: every lane converged, the unpadded batch on the mesh's first
-    device, one K1 launch per shard on the card, parity with the unsharded
-    single-phase call, warm medians of both. Returns the K1 launches of
-    the first call."""
+    device, one K1 launch per shard on the card, the gathered QA RMS
+    within RMS_RTOL_F32 of plain float32 on the gathered solution, parity
+    with the unsharded single-phase call, warm medians of both
+    (``calls`` rounds). Returns the K1 launches of the first call."""
     obj, uv, intr_gt = make_problems(b)
     obj_d, uv_d = torch.as_tensor(obj, device=dev), torch.as_tensor(uv, device=dev)
     runs = {
@@ -1894,8 +1901,16 @@ def mesh_facade_cell(dev, card, mesh, b, what):
     if dev.type == "cuda":
         check(launches == mesh.size and pr.launches["residuals"] == 0,
               f"{what}: one K1 launch in RMS mode per shard ({mesh.size})")
-    mesh_parity(lm, runs["unsharded"]()[2][0], what)
-    med = interleaved_medians(runs, dev)
+    ones = torch.ones(obj_d.shape[:3], dtype=obj_d.dtype, device=dev)
+    plain = pr.projection_rms_plain(out[2], out[1], obj_d[:b], uv_d[:b], ones)
+    rel = float(((rms_check - plain).abs() / plain.clamp(min=1e-30)).max())
+    _, _, one, one_rms = runs["unsharded"]()
+    to_one = float((rms_check.double() - one_rms.double()).abs().max())
+    print(f"[smoke] {what}: gathered QA RMS max rel diff to plain f32 on the gathered solution {rel!r}, "
+          f"max |sharded - unsharded QA RMS| {to_one!r} px")
+    check(rel <= RMS_RTOL_F32, f"{what}: the gathered QA RMS within {RMS_RTOL_F32} relative of plain f32")
+    mesh_parity(lm, one[0], what)
+    med = interleaved_medians(runs, dev, calls)
     print(f"[smoke] {what} B={b} on {mesh.size} shard(s) ({', '.join(map(str, mesh.devices))}): K1 launches "
           f"{launches}, first call {first_s!r} s, warm median {med['sharded'][0]!r} s = {b / med['sharded'][0]!r} "
           f"solves/s; unsharded single phase {med['unsharded'][0]!r} s = {b / med['unsharded'][0]!r} solves/s, "
@@ -1910,13 +1925,14 @@ def mesh_phase(dev, card):
     4-shard mesh, each against the unsharded single-phase call on the same
     inputs. Returns the K1 launches of the two facade cells' first calls."""
     every = make_mesh() if dev.type == "cuda" else make_mesh([dev])
-    launches = mesh_facade_cell(dev, card, every, FLEET, "config 2, every card")
+    launches = mesh_facade_cell(dev, card, every, FLEET, "config 2, every card", WARM_CALLS)
     if every.size >= 2:
         print(f"[smoke] config 2 over {every.size} cards: multi-card rate above")
     else:
         print("[smoke] one card visible: multi-card scaling not measured")
     shards = make_mesh([dev] * MESH_SHARDS)
-    launches += mesh_facade_cell(dev, card, shards, MESH_FACADE_CAMERAS, "config 2, 4 shards of one card")
+    launches += mesh_facade_cell(dev, card, shards, MESH_FACADE_CAMERAS, "config 2, 4 shards of one card",
+                                 MESH_WARM_CALLS)
 
     p = bundle_problems(MESH_BUNDLE_RIGS)
     args = bundle_args(p, dev)
@@ -1928,7 +1944,7 @@ def mesh_phase(dev, card):
     check_bundle(out, p)
     check(out[2].device == shards.devices[0], "config 5 on the mesh: the outputs on the mesh's first device")
     mesh_parity(out[0], runs["unsharded"]()[0], "config 5, 4 shards")
-    med = interleaved_medians(runs, dev)
+    med = interleaved_medians(runs, dev, MESH_WARM_CALLS)
     print(f"[smoke] config 5 B={MESH_BUNDLE_RIGS} on {MESH_SHARDS} shards: first call {first_s!r} s, warm median "
           f"{med['sharded'][0]!r} s = {MESH_BUNDLE_RIGS / med['sharded'][0]!r} rigs/s; unsharded single phase "
           f"{med['unsharded'][0]!r} s, sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r} on {card}")
@@ -1943,11 +1959,22 @@ def mesh_phase(dev, card):
     tra, rot = pose_errors(pose.cpu().numpy(), truth)
     check(bool(lm.success.all()) and pose.shape[0] == MESH_PLANAR_VIEWS, "planar pose on the mesh: every lane converged")
     check(tra <= PLANAR_TOL_M and rot <= PLANAR_TOL_DEG, "planar pose on the mesh: every pose within PLANAR_TOL")
-    mesh_parity(lm, runs["unsharded"]()[0], "planar pose, 4 shards", PLANAR_PARITY_COUNTERS)
-    med = interleaved_medians(runs, dev)
+    one = runs["unsharded"]()[0]
+    mesh_parity(lm, one, "planar pose, 4 shards", PLANAR_PARITY_COUNTERS)
+    # one call with a thread per shard, as on a mesh of distinct cards: the
+    # shards' dual-number Jacobians take turns under lm.FORWARD_AD_LOCK
+    by_device = batched._by_device
+    batched._by_device = lambda devices: [[i] for i in range(len(devices))]
+    try:
+        threaded, threaded_s = timed(runs["sharded"], dev)
+    finally:
+        batched._by_device = by_device
+    mesh_parity(threaded[0], one, "planar pose, 4 shards on a thread each", PLANAR_PARITY_COUNTERS)
+    med = interleaved_medians(runs, dev, MESH_WARM_CALLS)
     print(f"[smoke] planar pose B={MESH_PLANAR_VIEWS} on {MESH_SHARDS} shards: first call {first_s!r} s, warm median "
           f"{med['sharded'][0]!r} s = {MESH_PLANAR_VIEWS / med['sharded'][0]!r} poses/s; unsharded "
-          f"{med['unsharded'][0]!r} s, sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r} on {card}")
+          f"{med['unsharded'][0]!r} s, sharded / unsharded {med['sharded'][0] / med['unsharded'][0]!r}; a thread per "
+          f"shard (one call) {threaded_s!r} s on {card}")
     return launches
 
 

@@ -587,10 +587,12 @@ def test_mixed_runs_its_coarse_phase_in_float32_on_card(cuda_device, monkeypatch
 def test_a_fresh_process_may_start_on_a_mesh(cuda_device):
     """The first linalg call of a process on a card loads PyTorch's CUDA
     linear-algebra kernels, which is not thread-safe: a process whose first
-    solve is a mesh of four shards must not race it."""
+    solve is a mesh of four shards, each on its own thread as on distinct
+    cards, must not race it."""
     code = (
         "import torch, chip_smoke\n"
-        "from calibration_tpu_torch.parallel import intrinsics_facade_batch, make_mesh\n"
+        "from calibration_tpu_torch.parallel import batched, intrinsics_facade_batch, make_mesh\n"
+        "batched._by_device = lambda devices: [[i] for i in range(len(devices))]\n"
         "obj, uv, _ = chip_smoke.make_problems(8, views=4, rows=5, cols=7)\n"
         "out = intrinsics_facade_batch(torch.as_tensor(obj, device='cuda'), torch.as_tensor(uv, device='cuda'),\n"
         "                              opts=chip_smoke.FACADE_OPTS, mesh=make_mesh(['cuda:0'] * 4))\n"

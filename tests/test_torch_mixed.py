@@ -7,8 +7,9 @@ The float32 phase's trials depend on roundoff, so the port is held to JAX
 on the result after the polish, not on the coarse phase's counters: final
 cost within 1e-8 relative and the intrinsics within 1e-5 relative
 (Frobenius), the same success; and the same against the port's own "f64"
-solve. Data: 2 cameras x 4 views of a 5x7 grid at 0.2 px (intrinsics),
-2 rigs of config 5's set (bundle)."""
+solve. Data: 2 cameras x 4 views of a 5x7 grid at 0.2 px, the solvers
+started from the true poses and perturbed intrinsics (intrinsics), 2 rigs
+of config 5's set (bundle)."""
 
 import dataclasses
 import functools
@@ -23,7 +24,6 @@ from calibration_tpu.optim import IntrinsicsOptimOptions as JIntrOptions
 from calibration_tpu.optim import OptimOptions as JOptimOptions
 from calibration_tpu.optim import bundle as jbundle
 from calibration_tpu.optim import intrinsics as jintr
-from calibration_tpu.parallel import batched as jb
 from calibration_tpu_torch import convert
 from calibration_tpu_torch.optim import bundle as tbundle
 from calibration_tpu_torch.optim import intrinsics as tintr
@@ -61,31 +61,33 @@ def _hold(t_out, j_out, t_f64):
             assert rel_fro(t_out[1][i], want[i]) < INTR_RTOL
 
 
-@pytest.mark.parametrize("precision", ["mixed", "mixed_jac"])
-def test_intrinsics_schur_mixed_matches_jax(views, port_f64, precision):
-    obj, uv, _, _ = views
-    _, j_out = jax.device_get(jb.intrinsics_batch(obj, uv, opts=JOPTS, precision=precision, two_phase=False))
-    t_out = convert.to_numpy(
-        tb.intrinsics_batch(t64(obj), t64(uv), opts=TOPTS, precision=precision, two_phase=False)[1]
-    )
-    _hold(t_out, j_out, port_f64)
-
-
-def _dense_inits(views):
+def _inits(views):
     obj, uv, poses, intr_gt = views
     intr0 = np.tile(np.concatenate([intr_gt[:5] + [4.0, -3.0, 2.0, -1.0, 0.0], np.zeros(5)]), (B, 1))
     return obj, uv, intr0, poses
 
 
-def test_intrinsics_dense_mixed_matches_jax(views):
-    obj, uv, intr0, poses = _dense_inits(views)
-    jsolve = jax.jit(jax.vmap(functools.partial(jintr.optimize_intrinsics_device, opts=JOPTS, precision="mixed",
-                                                solver="dense")))
+def _solve_both(views, precision, solver):
+    """JAX's and the port's optimize_intrinsics_device in ``precision``,
+    and the port's "f64", from the same perturbed inits (the device solve
+    compiles in half the time of JAX's whole intrinsics_batch)."""
+    obj, uv, intr0, poses = _inits(views)
+    jsolve = jax.jit(jax.vmap(functools.partial(jintr.optimize_intrinsics_device, opts=JOPTS, precision=precision,
+                                                solver=solver)))
     j_out = jax.device_get(jsolve(obj, uv, intr0, poses))
     t_args = (t64(obj), t64(uv), t64(intr0), t64(poses))
-    t_out = convert.to_numpy(tintr.optimize_intrinsics_device(*t_args, opts=TOPTS, precision="mixed", solver="dense"))
-    t_f64 = convert.to_numpy(tintr.optimize_intrinsics_device(*t_args, opts=TOPTS, solver="dense"))
-    _hold(t_out, j_out, t_f64)
+    t_out = convert.to_numpy(tintr.optimize_intrinsics_device(*t_args, opts=TOPTS, precision=precision, solver=solver))
+    t_f64 = convert.to_numpy(tintr.optimize_intrinsics_device(*t_args, opts=TOPTS, solver=solver))
+    return t_out, j_out, t_f64
+
+
+@pytest.mark.parametrize("precision", ["mixed", "mixed_jac"])
+def test_intrinsics_schur_mixed_matches_jax(views, precision):
+    _hold(*_solve_both(views, precision, "schur"))
+
+
+def test_intrinsics_dense_mixed_matches_jax(views):
+    _hold(*_solve_both(views, "mixed", "dense"))
 
 
 def test_bundle_mixed_matches_jax():
@@ -151,7 +153,7 @@ def test_coarse_phase_runs_in_float32(views, precision):
 def test_precisions_a_path_does_not_take_raise(views, call):
     """The reference runs plain float64 for "mixed_jac" on its dense
     intrinsics and bundle solves, silently; the port names what it takes."""
-    obj, uv, intr0, poses = _dense_inits(views)
+    obj, uv, intr0, poses = _inits(views)
     intr_args = (t64(obj), t64(uv), t64(intr0), t64(poses))
     with pytest.raises(ValueError, match="precision"):
         if call == "dense_mixed_jac":

@@ -52,8 +52,8 @@ def test_camera_matrix_and_pinhole_pieces():
 
 
 def test_se3_helpers():
-    assert torch.equal(tse3.se3_identity(), torch.eye(4, dtype=torch.float64))
-    _close(tse3.se3_identity(torch.float32), jse3.se3_identity(jnp.float32))
+    assert torch.equal(tse3.se3_identity(device="cpu"), torch.eye(4, dtype=torch.float64))
+    _close(tse3.se3_identity(torch.float32, device="cpu"), jse3.se3_identity(jnp.float32))
     p6 = np.concatenate([RNG.uniform(-1, 1, (6, 3)), RNG.uniform(-2, 2, (6, 3))], -1)
     _close(tse3.array_to_pose(t64(p6)), jse3.array_to_pose(p6))
     poses = np.asarray(jse3.array_to_pose(p6))

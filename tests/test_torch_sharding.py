@@ -3,15 +3,16 @@ argument of the batch entry points) against the JAX package's, CPU,
 float64.
 
 torch has one CPU device, so a 4-shard CPU mesh lists it four times: the
-batch is padded with copies of problem 0 to a multiple of 4, split, each
-shard solved on its own host thread, and the outputs gathered and
-trimmed, as on a card. Bars: homography on a 4-shard mesh against JAX's
+batch is padded with copies of problem 0 to a multiple of 4, split, the
+shards solved in turn (one host thread per distinct device), and the
+outputs gathered and trimmed, as on a card. Bars: homography on a 4-shard mesh against JAX's
 on a 4-device virtual CPU mesh, counters exact and H within 1e-10; the
 intrinsics, extrinsics and bundle batches on the 4-shard mesh against the
 port's and JAX's unsharded single-phase calls, counters exact and cost
 within 1e-10 relative; planar pose, a Scheimpflug intrinsics batch,
-line-scan RANSAC and hand-eye on the mesh against the port unsharded. The
-forward-mode paths (planar pose, Scheimpflug, homography) raise without
+line-scan RANSAC and hand-eye on the mesh against the port unsharded. With
+a thread per shard, as on a mesh of distinct cards, the forward-mode
+paths (planar pose, Scheimpflug, homography) raise without
 ``lm.FORWARD_AD_LOCK``: PyTorch keeps forward-AD levels per process."""
 
 import sys
@@ -144,21 +145,29 @@ def test_mesh_matches_unsharded_and_jax(make):
         _cost_close(t_lm, want)
 
 
+@pytest.fixture
+def thread_per_shard(monkeypatch):
+    """Each shard on a host thread of its own, as on a mesh of distinct
+    cards."""
+    monkeypatch.setattr(tb, "_by_device", lambda devices: [[i] for i in range(len(devices))])
+
+
 def _planar_pose(mesh, lanes=10):
     obj, uv, kmtx, _ = chip_smoke.planar_problems(1)
     return tb.planar_pose_batch(*(t64(a[:lanes]) for a in (obj, uv, kmtx)), options=chip_smoke.PLANAR_OPTS,
                                 mesh=mesh)[0]
 
 
-def test_planar_pose_on_mesh_matches_unsharded():
-    """Each shard linearizes with dual numbers: the forward-AD lock."""
+def test_planar_pose_on_mesh_matches_unsharded(thread_per_shard):
+    """Each shard linearizes with dual numbers on its own thread: the
+    forward-AD lock."""
     t_lm, one = _planar_pose(MESH), _planar_pose(None)
     _same_counters(t_lm, one, chip_smoke.PLANAR_PARITY_COUNTERS)
     _cost_close(t_lm, one)
 
 
-def test_scheimpflug_intrinsics_on_mesh_matches_unsharded():
-    """The forward-mode Schur Jacobian on every shard."""
+def test_scheimpflug_intrinsics_on_mesh_matches_unsharded(thread_per_shard):
+    """The forward-mode Schur Jacobian on every shard's thread."""
     obj, uv, _ = chip_smoke.scheimpflug_problems(3, (0.05, -0.04), views=4, rows=5, cols=7)
     opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=30, compute_covariance=False),
                                   fixed_distortion_indices=(2, 3))
@@ -169,10 +178,17 @@ def test_scheimpflug_intrinsics_on_mesh_matches_unsharded():
     _cost_close(t_out[0], one[0])
 
 
-def test_forward_ad_lock_holds_under_thread_stress():
-    """16 shards of one lane each, more threads than cores, the
-    interpreter switching threads every microsecond: every shard's dual
-    level stays its own."""
+def test_shards_of_one_device_share_a_thread():
+    assert tb._by_device(MESH.devices) == [[0, 1, 2, 3]]
+    cards = tsh.Mesh(tuple(torch.device("cuda", i) for i in (0, 1, 0, 2)))
+    assert tb._by_device(cards.devices) == [[0, 2], [1], [3]]
+
+
+def test_forward_ad_lock_holds_under_thread_stress(thread_per_shard):
+    """16 shards of one lane each, each on its own thread, more threads
+    than cores, the interpreter switching threads every microsecond: every
+    shard's dual level stays its own, and the gather keeps the shards'
+    order."""
     prev = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:

@@ -377,7 +377,7 @@ NEW_PHASES = {
     # the mesh phase on CPU meshes: one device for "every card", then 4
     # shards; config 2 at 6 cameras and planar pose at 9 views pad to 8 and 12
     "mesh": ("mesh_phase", (("FLEET", 4), ("MESH_FACADE_CAMERAS", 6), ("MESH_BUNDLE_RIGS", 6),
-                            ("PLANAR_CAMERAS", 1), ("MESH_PLANAR_VIEWS", 9))),
+                            ("PLANAR_CAMERAS", 1), ("MESH_PLANAR_VIEWS", 9), ("MESH_WARM_CALLS", 2))),
     "mixed": ("mixed_phase", (("MIXED_CAMERAS", 4), ("BUNDLE_RIGS", 4))),
     "trace": ("trace_phase", (("HOMOG_LANES", 16), ("FLEET", 4))),
 }

@@ -32,9 +32,10 @@ the A/B of the VarPro Jacobian (planar pose and semi-DLT, each module's
 retraction (semi-DLT and the Scheimpflug stereo cell: runs of one block
 kind retracted together against block by block), and the mesh sweep
 (config 2 at B = 254 through ``intrinsics_facade_batch`` on 4 shards of
-one card: a host thread per shard, as the port runs it; the same with the
-interpreter's switch interval at 0.1 ms; the four shards one after
-another on one thread; and the unsharded single-phase call). Then
+one card: the four shards one after another on one thread, as the port
+runs the shards of one device; a host thread per shard, as it runs the
+shards of distinct devices; the same with the interpreter's switch
+interval at 0.1 ms; and the unsharded single-phase call). Then
 each cell's warm wall times (host clock,
 synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
@@ -57,7 +58,6 @@ import statistics
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -257,14 +257,15 @@ def varpro_ab(name, fn, module, repeats):
 
 
 @contextlib.contextmanager
-def one_thread_pool():
-    """``batched._on_mesh`` with a pool of one thread: the shards one after
-    another (the mesh sweep's arm)."""
-    batched.ThreadPoolExecutor = lambda max_workers: ThreadPoolExecutor(max_workers=1)
+def thread_per_shard():
+    """``batched._on_mesh`` with a host thread per shard, as on a mesh of
+    distinct cards (the mesh sweep's arm)."""
+    by_device = batched._by_device
+    batched._by_device = lambda devices: [[i] for i in range(len(devices))]
     try:
         yield
     finally:
-        batched.ThreadPoolExecutor = ThreadPoolExecutor
+        batched._by_device = by_device
 
 
 @contextlib.contextmanager
@@ -278,13 +279,19 @@ def switch_interval(seconds):
 
 
 def mesh_sweep(name, sharded, unsharded, repeats):
-    """Warm walls of a 4-shard mesh call with a thread per shard (the
-    port), with a 0.1 ms switch interval, with one thread, and of the
-    unsharded call, interleaved A B C D D C B A; prints the median per
-    arm."""
-    arms = {"threads": (sharded, contextlib.nullcontext), "threads, 0.1 ms switch": (
-        sharded, lambda: switch_interval(1e-4)), "one thread": (sharded, one_thread_pool),
-        "unsharded single phase": (unsharded, contextlib.nullcontext)}
+    """Warm walls of a 4-shard mesh call of one card on one thread (the
+    port), with a thread per shard, the same with a 0.1 ms switch
+    interval, and of the unsharded call, interleaved A B C D D C B A;
+    prints the median per arm."""
+
+    @contextlib.contextmanager
+    def threads_fast_switch():
+        with thread_per_shard(), switch_interval(1e-4):
+            yield
+
+    arms = {"one thread": (sharded, contextlib.nullcontext), "threads": (sharded, thread_per_shard),
+            "threads, 0.1 ms switch": (sharded, threads_fast_switch),
+            "unsharded single phase": (unsharded, contextlib.nullcontext)}
     times = {k: [] for k in arms}
     for key, (fn, ctx) in arms.items():
         with ctx():
