@@ -19,9 +19,11 @@ import sys
 from pathlib import Path
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
+@profiling.traced("app.bundle_pipeline")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Planar intrinsics + hand-eye + bundle adjustment calibration pipeline"
@@ -50,30 +52,31 @@ def main(argv=None) -> int:
 
     try:
         device = resolve_device(args.device)
-        config_json = load_json_file(args.input)
-        base_dir = Path(args.input).resolve().parent
+        with profiling.span("config"):
+            config_json = load_json_file(args.input)
+            base_dir = Path(args.input).resolve().parent
 
-        intrinsics_cfg_path = resolve_path(base_dir, config_json["planar_intrinsics_config"])
-        planar_cfg = load_calibration_config(intrinsics_cfg_path)
-        if planar_cfg is None:
-            raise RuntimeError(f"Failed to load planar intrinsics config from {intrinsics_cfg_path}")
+            intrinsics_cfg_path = resolve_path(base_dir, config_json["planar_intrinsics_config"])
+            planar_cfg = load_calibration_config(intrinsics_cfg_path)
+            if planar_cfg is None:
+                raise RuntimeError(f"Failed to load planar intrinsics config from {intrinsics_cfg_path}")
 
-        loader = JsonPlanarDatasetLoader()
-        for entry in config_json["planar_detections"]:
-            loader.add_entry(resolve_path(base_dir, entry["path"]), entry["sensor_id"])
+            loader = JsonPlanarDatasetLoader()
+            for entry in config_json["planar_detections"]:
+                loader.add_entry(resolve_path(base_dir, entry["path"]), entry["sensor_id"])
 
-        context = PipelineContext()
-        context.set_intrinsics_config(planar_cfg)
-        if "stereo" in config_json:
-            context.set_stereo_config(jsonio.from_jsonable(config_json["stereo"], StereoCalibrationConfig))
-        if "hand_eye" in config_json:
-            he_cfg = jsonio.from_jsonable(config_json["hand_eye"], HandEyePipelineConfig)
-            if he_cfg.rigs:
-                context.set_handeye_config(he_cfg)
-        if "bundle" in config_json:
-            bundle_cfg = jsonio.from_jsonable(config_json["bundle"], BundlePipelineConfig)
-            if bundle_cfg.rigs:
-                context.set_bundle_config(bundle_cfg)
+            context = PipelineContext()
+            context.set_intrinsics_config(planar_cfg)
+            if "stereo" in config_json:
+                context.set_stereo_config(jsonio.from_jsonable(config_json["stereo"], StereoCalibrationConfig))
+            if "hand_eye" in config_json:
+                he_cfg = jsonio.from_jsonable(config_json["hand_eye"], HandEyePipelineConfig)
+                if he_cfg.rigs:
+                    context.set_handeye_config(he_cfg)
+            if "bundle" in config_json:
+                bundle_cfg = jsonio.from_jsonable(config_json["bundle"], BundlePipelineConfig)
+                if bundle_cfg.rigs:
+                    context.set_bundle_config(bundle_cfg)
 
         pipeline = CalibrationPipeline()
         if args.verbose:

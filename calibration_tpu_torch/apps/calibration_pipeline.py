@@ -20,9 +20,11 @@ import sys
 from pathlib import Path
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
+@profiling.traced("app.calibration_pipeline")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="End-to-end calibration pipeline (intrinsics -> stereo -> hand-eye)"

@@ -23,9 +23,11 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
+@profiling.traced("app.homography")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Homography estimation and refinement example")
     parser.add_argument("--input", required=True, help="Input JSON with correspondences")

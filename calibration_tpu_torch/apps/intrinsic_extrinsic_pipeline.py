@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
@@ -47,6 +48,7 @@ def _multicam_entry(run) -> dict:
     return entry
 
 
+@profiling.traced("app.intrinsic_extrinsic_pipeline")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Planar intrinsics and extrinsics calibration example (stereo or multicam)"

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
@@ -52,6 +53,7 @@ def _camera(cam_json):
     return camera.numpy(), model_name
 
 
+@profiling.traced("app.linescan_calibration")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Line-scan laser plane calibration (linear)")
     parser.add_argument("--input", required=True, help="Input JSON (camera, views)")

@@ -21,9 +21,11 @@ import sys
 from pathlib import Path
 
 from .. import native
+from ..utils import profiling
 from ._common import resolve_device
 
 
+@profiling.traced("app.planar_intrinsics")
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Intrinsic calibration from planar target detections"
@@ -54,7 +56,8 @@ def main(argv=None) -> int:
 
     try:
         facade = PlanarIntrinsicCalibrationFacade(resolve_device(args.device))
-        cfg = load_calibration_config(args.config)
+        with profiling.span("config"):
+            cfg = load_calibration_config(args.config)
         if cfg is None:
             raise RuntimeError("Failed to load calibration config")
         if len(cfg.cameras) != len(args.features) and not (

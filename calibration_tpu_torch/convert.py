@@ -20,6 +20,7 @@ from .optim.bundle import BundleOptions
 from .optim.core import OptimizerType, OptimOptions
 from .optim.extrinsics import ExtrinsicOptions
 from .optim.intrinsics import IntrinsicsOptimOptions
+from .utils import profiling
 
 
 def _known_fields(cls, values: dict) -> dict:
@@ -121,11 +122,18 @@ def to_tensor(a, device, dtype=torch.float64) -> torch.Tensor:
 
 
 def to_numpy(tree):
-    """Tensors, NamedTuples, tuples and lists of them -> numpy."""
+    """Tensors, NamedTuples, tuples and lists of them -> numpy: results
+    copied out, one ``profiling.sync`` (the first copy waits for the
+    device)."""
+    with profiling.sync("to_numpy"):
+        return _to_numpy(tree)
+
+
+def _to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_numpy(t) for t in tree))
+        return type(tree)(*(_to_numpy(t) for t in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(to_numpy(t) for t in tree)
+        return type(tree)(_to_numpy(t) for t in tree)
     return tree

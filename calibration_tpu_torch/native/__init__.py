@@ -34,6 +34,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 
 from ..kernels import _build as _kbuild
+from ..utils import profiling
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SRC_DIR = Path(__file__).resolve().parent
@@ -129,6 +130,7 @@ def _fastjson():
         return _fj_mod
 
 
+@profiling.traced("write")
 def dumps_fast(obj, indent=None) -> str:
     """json.dumps-compatible serialization (ensure_ascii, default
     separators / indent=N) through the native writer; falls back to stdlib

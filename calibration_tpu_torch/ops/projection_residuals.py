@@ -18,21 +18,19 @@ On CUDA tensors a wrapper launches the kernel or raises; on CPU tensors it
 computes the plain version. The tensor's device decides; there is no
 fallback from a failed launch. The plain versions,
 ``projection_residuals_plain`` and ``projection_rms_plain``, stay here for
-the tests and ``chip_smoke.py``. ``launches`` counts kernel launches per
-mode, so a run can show that its main path went through the kernel.
+the tests and ``chip_smoke.py``. Each launch counts ``k1.launches.rms``
+or ``k1.launches.residuals`` (``utils.profiling.counters()``), so a run can
+show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from ..kernels import _build
-
-launches = {"residuals": 0, "rms": 0}
-_launches_lock = threading.Lock()  # a mesh launches from one thread per device
+from ..utils import profiling
 
 _SCALARS = {torch.float32: 0, torch.float64: 1}
 _MASKS = {torch.bool: 0, torch.uint8: 0, torch.float32: 1, torch.float64: 2}
@@ -176,8 +174,7 @@ def _launch(mode: str, views, out) -> None:
         err = fn(ctypes.addressof(args), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"projection kernel ({mode} mode) launch failed: CUDA error {err}")
-    with _launches_lock:
-        launches[mode] += 1
+    profiling.count(f"k1.launches.{mode}")
 
 
 def projection_residuals_f32(rot, tra, intr, obj_xy, img_uv, mask):

@@ -24,24 +24,21 @@ axis, one lane per problem, and the round loop runs on the host:
   reproduce JAX's threefry stream; the tests substitute JAX's draws for
   ``round_noise`` and then hold the port equal to JAX lane for lane.
 
-``rounds`` counts the rounds run, by device type, so a run can show that
-its prefilter ran on the card.
+Each round counts ``ransac.rounds.<device type>``
+(``utils.profiling.counters()``), so a run can show that its prefilter ran
+on the card, and runs in the span ``ransac.round``.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
 from . import homography as H
 from . import planefit
-
-rounds: collections.Counter = collections.Counter()
-_rounds_lock = threading.Lock()  # a mesh runs one thread per device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +128,7 @@ def _run_round(r, data, mask, fit_fn, residual_fn, degenerate_fn, k_min, round_s
     (score, model, inliers, rms, count)."""
     lanes, n = mask.shape
     device = mask.device
-    with _rounds_lock:
-        rounds[device.type] += 1
+    profiling.count(f"ransac.rounds.{device.type}")
     g = round_noise(options.seed, r, (round_size, n), device)
     logp = torch.where(mask, 0.0, -torch.inf).to(torch.float64)
     idx = torch.topk(g[None] + logp[:, None, :], k_min, dim=-1).indices  # (L, H, k)
@@ -191,7 +187,8 @@ def ransac(
     num_rounds = -(-options.max_iters // round_size)  # ceil
     step = (fit_fn, residual_fn, degenerate_fn, k_min_samples, round_size, options)
 
-    score, model, inl, rms, count = _run_round(0, data, mask, *step)
+    with profiling.span("ransac.round"):
+        score, model, inl, rms, count = _run_round(0, data, mask, *step)
     rounds_done = torch.ones((lanes,), dtype=torch.int64, device=first.device)
     active = torch.ones((lanes,), dtype=torch.bool, device=first.device)
     n_valid = torch.clamp(mask.sum(dim=-1), min=1).to(torch.float64)
@@ -203,10 +200,12 @@ def ransac(
             options.max_iters,
         )
         active = active & (spent < dyn)
-        idx = torch.nonzero(active).squeeze(-1)
+        with profiling.sync("ransac.active"):
+            idx = torch.nonzero(active).squeeze(-1)
         if idx.numel() == 0:
             break
-        s, m, i, q, c = _run_round(r, {k: a[idx] for k, a in data.items()}, mask[idx], *step)
+        with profiling.span("ransac.round"):
+            s, m, i, q, c = _run_round(r, {k: a[idx] for k, a in data.items()}, mask[idx], *step)
         better = s > score[idx]  # strict: a tie keeps the earlier round's model
         upd = idx[better]
         score[upd], model[upd], inl[upd] = s[better], m[better], i[better]

@@ -29,6 +29,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg
+from ..utils import profiling
 from .core import OptimOptions
 from .manifold import ProductManifold
 
@@ -265,23 +266,24 @@ def make_lm_step(
 
     def step(state: LMState) -> LMState:
         outer = cond(state)
-        x, cost = state.x, state.cost
-        r_lin, jac = linearize(x)
-        rw, jw = weighted(r_lin, jac)
-        jw = jw * tan_free[:, None, :]
-        g = torch.einsum("bmi,bm->bi", jw, rw)
-        a = jw.transpose(-1, -2) @ jw
+        with profiling.span("dense.linearize"):
+            x, cost = state.x, state.cost
+            r_lin, jac = linearize(x)
+            rw, jw = weighted(r_lin, jac)
+            jw = jw * tan_free[:, None, :]
+            g = torch.einsum("bmi,bm->bi", jw, rw)
+            a = jw.transpose(-1, -2) @ jw
 
-        grad_max = g.abs().amax(dim=-1)
-        gtol_hit = grad_max <= eps
-        diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
-        # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
-        # scaled system has unit diagonal, so the damping is mu * I and the
-        # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
-        # factorization stays SPD (their delta is zeroed)
-        d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
-        a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
-        x_norm = torch.linalg.norm(x, dim=-1)
+            grad_max = g.abs().amax(dim=-1)
+            gtol_hit = grad_max <= eps
+            diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
+            # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
+            # scaled system has unit diagonal, so the damping is mu * I and the
+            # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
+            # factorization stays SPD (their delta is zeroed)
+            d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
+            a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
+            x_norm = torch.linalg.norm(x, dim=-1)
 
         # inner damping-retry loop on the cached linearization
         t_x, t_cost, t_mu, t_nu, t_it = x, cost, state.mu, state.nu, state.it
@@ -289,37 +291,40 @@ def make_lm_step(
         t_term = torch.zeros_like(state.termination)
         while True:
             active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-            if not bool(active.any()):
+            with profiling.sync("dense.trial"):
+                go = bool(active.any())
+            if not go:
                 break
-            sys = a_s + t_mu[:, None, None] * diag_free
-            delta = -d * linalg.spd_solve(sys, d * g) * tan_free
-            delta_ok = torch.isfinite(delta).all(dim=-1)
-            delta = sel(delta_ok, delta, torch.zeros_like(delta))
+            with profiling.span("dense.trial"):
+                sys = a_s + t_mu[:, None, None] * diag_free
+                delta = -d * linalg.spd_solve(sys, d * g) * tan_free
+                delta_ok = torch.isfinite(delta).all(dim=-1)
+                delta = sel(delta_ok, delta, torch.zeros_like(delta))
 
-            step_norm = torch.linalg.norm(delta, dim=-1)
-            xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+                step_norm = torch.linalg.norm(delta, dim=-1)
+                xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
 
-            x_new = clip_x(manifold.retract(x, delta))
-            cost_new = cost_of(residuals(x_new))
-            pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
-            rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-            accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-            ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+                x_new = clip_x(manifold.retract(x, delta))
+                cost_new = cost_of(residuals(x_new))
+                pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
+                rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+                accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+                ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
 
-            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-            mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-            term = torch.where(
-                gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-            ).to(t_term.dtype)
+                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+                mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+                term = torch.where(
+                    gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+                ).to(t_term.dtype)
 
-            t_x = sel(accept, x_new, t_x)
-            t_cost = sel(accept, cost_new, t_cost)
-            t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-            t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-            t_it = sel(active, t_it + 1, t_it)
-            accepted = accepted | accept
-            t_term = sel(active, term, t_term)
+                t_x = sel(accept, x_new, t_x)
+                t_cost = sel(accept, cost_new, t_cost)
+                t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+                t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+                t_it = sel(active, t_it + 1, t_it)
+                accepted = accepted | accept
+                t_term = sel(active, term, t_term)
 
         # lanes outside the outer loop never went active: their t_* are
         # their own state, so only the per-linearization fields need gating
@@ -400,11 +405,15 @@ def lm_core(
         num_blocks=num_blocks, lower=lower, upper=upper, jac_fn=jac_fn,
     )
     state = init
-    while bool(cond(state).any()):
+    while True:
+        with profiling.sync("dense.outer"):
+            go = bool(cond(state).any())
+        if not go:
+            return lm_output(init, state)
         state = step(state)
-    return lm_output(init, state)
 
 
+@profiling.traced("dense.covariance")
 def covariance(
     residual_fn: Callable,
     x,

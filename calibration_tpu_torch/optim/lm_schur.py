@@ -32,6 +32,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg, se3
+from ..utils import profiling
 from .core import OptimOptions
 from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput, dual_level
 
@@ -152,6 +153,7 @@ def _global_tangent_dim(xg, g_manifold):
     return xg.shape[-1] if g_manifold is None else g_manifold.tangent_dim
 
 
+@profiling.traced("schur.covariance")
 def tangent_covariance(
     residual_fn: Callable,
     jac_fn: Callable,
@@ -341,44 +343,47 @@ def lm_core_schur(
 
     while True:
         outer = ~done & (it < max_it)
-        if not bool(outer.any()):
+        with profiling.sync("schur.outer"):
+            go = bool(outer.any())
+        if not go:
             break
-        # one LINEARIZATION at the current iterate; the Jacobian and its
-        # grams in gdt, the system in the state's dtype
-        jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
-        w, _ = weights(r)
-        sw = torch.sqrt(w)
-        rw = (r * sw).to(gdt)
-        jw = jac * sw[..., None].to(gdt)
-        a_blk = jw[..., :pg] * gmask[:, None, None, :].to(gdt)
-        b_blk = jw[..., pg:] * vmask6[:, :, None, :].to(gdt)
-        u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk).to(dtype)
-        wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk).to(dtype)
-        vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk).to(dtype)
-        gu = torch.einsum("bvmi,bvm->bi", a_blk, rw).to(dtype)
-        gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw).to(dtype)
+        with profiling.span("schur.linearize"):
+            # one LINEARIZATION at the current iterate; the Jacobian and its
+            # grams in gdt, the system in the state's dtype
+            jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
+            w, _ = weights(r)
+            sw = torch.sqrt(w)
+            rw = (r * sw).to(gdt)
+            jw = jac * sw[..., None].to(gdt)
+            a_blk = jw[..., :pg] * gmask[:, None, None, :].to(gdt)
+            b_blk = jw[..., pg:] * vmask6[:, :, None, :].to(gdt)
+            u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk).to(dtype)
+            wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk).to(dtype)
+            vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk).to(dtype)
+            gu = torch.einsum("bvmi,bvm->bi", a_blk, rw).to(dtype)
+            gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw).to(dtype)
 
-        grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
-        gtol_hit = grad_max <= eps
+            grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
+            gtol_hit = grad_max <= eps
 
-        diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
-        diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
-        dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
-        dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
+            diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
+            diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
+            dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
+            dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
 
-        # Jacobi-scaled damped system; frozen dims get a unit diagonal so
-        # every factorization stays SPD (their delta is zeroed afterwards)
-        u_s = dg[:, :, None] * u * dg[:, None, :] + torch.diag_embed(1.0 - gmask)
-        w_s = dg[:, None, :, None] * wmat * dv[:, :, None, :]
-        v_s = dv[..., :, None] * vb * dv[..., None, :] + torch.diag_embed(1.0 - vmask6)
-        gu_s = dg * gu
-        gv_s = dv * gv
-        diag_gmask = torch.diag_embed(gmask)
-        diag_vmask6 = torch.diag_embed(vmask6)
-        # over the ambient blocks, a rig's camera quaternions included
-        x_norm = torch.sqrt(
-            torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
-        )
+            # Jacobi-scaled damped system; frozen dims get a unit diagonal so
+            # every factorization stays SPD (their delta is zeroed afterwards)
+            u_s = dg[:, :, None] * u * dg[:, None, :] + torch.diag_embed(1.0 - gmask)
+            w_s = dg[:, None, :, None] * wmat * dv[:, :, None, :]
+            v_s = dv[..., :, None] * vb * dv[..., None, :] + torch.diag_embed(1.0 - vmask6)
+            gu_s = dg * gu
+            gv_s = dv * gv
+            diag_gmask = torch.diag_embed(gmask)
+            diag_vmask6 = torch.diag_embed(vmask6)
+            # over the ambient blocks, a rig's camera quaternions included
+            x_norm = torch.sqrt(
+                torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
+            )
 
         # inner damping-retry loop on the cached linearization
         t_xg, t_quats, t_trans, t_r, t_cost = xg, quats, trans, r, cost
@@ -387,58 +392,61 @@ def lm_core_schur(
         t_term = torch.zeros_like(termination)
         while True:
             active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-            if not bool(active.any()):
+            with profiling.sync("schur.trial"):
+                go = bool(active.any())
+            if not go:
                 break
-            u_mu = u_s + t_mu[:, None, None] * diag_gmask
-            v_mu = v_s + t_mu[:, None, None, None] * diag_vmask6
-            v_inv = linalg.spd_inverse(v_mu)  # (B, V, 6, 6)
-            wvinv = w_s @ v_inv  # (B, V, pg, 6)
-            s_mat = u_mu - torch.einsum("bvik,bvjk->bij", wvinv, w_s)
-            rhs = -(gu_s - torch.einsum("bvik,bvk->bi", wvinv, gv_s))
-            dg_t = linalg.spd_solve(s_mat, rhs)
-            dv_t = -torch.einsum(
-                "bvij,bvj->bvi", v_inv, gv_s + torch.einsum("bvji,bj->bvi", w_s, dg_t)
-            )
+            with profiling.span("schur.trial"):
+                u_mu = u_s + t_mu[:, None, None] * diag_gmask
+                v_mu = v_s + t_mu[:, None, None, None] * diag_vmask6
+                v_inv = linalg.spd_inverse(v_mu)  # (B, V, 6, 6)
+                wvinv = w_s @ v_inv  # (B, V, pg, 6)
+                s_mat = u_mu - torch.einsum("bvik,bvjk->bij", wvinv, w_s)
+                rhs = -(gu_s - torch.einsum("bvik,bvk->bi", wvinv, gv_s))
+                dg_t = linalg.spd_solve(s_mat, rhs)
+                dv_t = -torch.einsum(
+                    "bvij,bvj->bvi", v_inv, gv_s + torch.einsum("bvji,bj->bvi", w_s, dg_t)
+                )
 
-            delta_g = dg * dg_t * gmask
-            delta_v = dv * dv_t * vmask6
-            delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
-            delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
-            delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
+                delta_g = dg * dg_t * gmask
+                delta_v = dv * dv_t * vmask6
+                delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
+                delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
+                delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
 
-            step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
-            xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+                step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
+                xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
 
-            xg_new = clip_g(g_retract(xg, delta_g))
-            q_new, tr_new = _retract_views(quats, trans, delta_v)
-            r_new = residuals(xg_new, q_new, tr_new)
-            _, cost_new = weights(r_new)
+                xg_new = clip_g(g_retract(xg, delta_g))
+                q_new, tr_new = _retract_views(quats, trans, delta_v)
+                r_new = residuals(xg_new, q_new, tr_new)
+                _, cost_new = weights(r_new)
 
-            pred = 0.5 * (
-                torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
-                + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
-            )
-            rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-            accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-            ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+                pred = 0.5 * (
+                    torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
+                    + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
+                )
+                rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+                accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+                ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
 
-            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-            mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-            term = torch.where(
-                gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-            ).to(termination.dtype)
+                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+                mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+                term = torch.where(
+                    gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+                ).to(termination.dtype)
 
-            t_xg = sel(accept, xg_new, t_xg)
-            t_quats = sel(accept, q_new, t_quats)
-            t_trans = sel(accept, tr_new, t_trans)
-            t_r = sel(accept, r_new, t_r)
-            t_cost = sel(accept, cost_new, t_cost)
-            t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-            t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-            t_it = sel(active, t_it + 1, t_it)
-            accepted = accepted | accept
-            t_term = sel(active, term, t_term)
+                t_xg = sel(accept, xg_new, t_xg)
+                t_quats = sel(accept, q_new, t_quats)
+                t_trans = sel(accept, tr_new, t_trans)
+                t_r = sel(accept, r_new, t_r)
+                t_cost = sel(accept, cost_new, t_cost)
+                t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+                t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+                t_it = sel(active, t_it + 1, t_it)
+                accepted = accepted | accept
+                t_term = sel(active, term, t_term)
 
         # lanes outside the outer loop never went active: their t_* are
         # their own state, so only the per-linearization fields need gating

@@ -51,6 +51,7 @@ from ..optim.intrinsics import (
 )
 from ..optim.lm import LMOutput
 from ..optim.planarpose import optimize_planar_pose_device
+from ..utils import profiling
 from . import sharding as sh
 
 # The reference's measured pinhole defaults (its CALIB_TWO_PHASE_CAP
@@ -163,10 +164,11 @@ def _on_mesh(fn, mesh, args, **kwargs):
     the first library loads are locked."""
     shards, real_b = _maybe_shard(args, mesh)
     devices, groups = mesh.devices, _by_device(mesh.devices)
+    ctx = profiling.context()
 
     def run(idx):
         device = devices[idx[0]]
-        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        with profiling.adopt(ctx), torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
             return [fn(*shards[i], **kwargs) for i in idx]
 
     if len(groups) == 1:
@@ -222,7 +224,7 @@ def _merge_phase(lm_a: LMOutput, sol_a, out_b, idx):
     )
 
 
-def _phased_lm(solve, data_args, init_sol, schedule):
+def _phased_lm(solve, data_args, init_sol, schedule, layer):
     """Phased compacted-batch LM.
 
     ``solve(iters, *data_args, *feedback)`` returns ``(lm_out,
@@ -233,15 +235,24 @@ def _phased_lm(solve, data_args, init_sol, schedule):
     (fresh damping, as a new solve) and scatters the results back. The
     first ``len(init_sol)`` solution leaves feed the next phase. Lanes are
     independent, so the result does not depend on which lanes share a
-    phase. Returns (lm_out, solution_leaf_tuple)."""
-    out = solve(schedule[0], *data_args, *init_sol)
+    phase. Returns (lm_out, solution_leaf_tuple).
+
+    ``layer`` ("schur" or "dense") names each phase's span
+    (``<layer>.phase``) and the counters of lanes in the first phase
+    (``<layer>.lanes``) and sent to a later one (``<layer>.rephased_lanes``)."""
+    profiling.count(f"{layer}.lanes", init_sol[0].shape[0])
+    with profiling.span(f"{layer}.phase"):
+        out = solve(schedule[0], *data_args, *init_sol)
     lm_m, sol_m = out[0], tuple(out[1:-2])
     for iters in schedule[1:]:
-        idx = torch.nonzero(~lm_m.success).squeeze(-1)
+        with profiling.sync("phase_split"):
+            idx = torch.nonzero(~lm_m.success).squeeze(-1)
         if idx.numel() == 0:
             break
+        profiling.count(f"{layer}.rephased_lanes", idx.numel())
         fb = tuple(s[idx] for s in sol_m[: len(init_sol)])
-        out_b = solve(iters, *(None if d is None else d[idx] for d in data_args), *fb)
+        with profiling.span(f"{layer}.phase"):
+            out_b = solve(iters, *(None if d is None else d[idx] for d in data_args), *fb)
         lm_m, sol_m = _merge_phase(lm_m, sol_m, out_b, idx)
     return lm_m, sol_m
 
@@ -278,7 +289,7 @@ def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase, m
         )
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
         _phased_solve(opts, model, precision), (obj, uv, mask, view_valid), (init_intr, init_poses),
-        _phase_budget(opts.core.max_iterations, (_intrinsics_phase_cap(model, opts),)),
+        _phase_budget(opts.core.max_iterations, (_intrinsics_phase_cap(model, opts),)), "schur",
     )
     b, v = obj.shape[0], obj.shape[1]
     if opts.core.compute_covariance:
@@ -340,6 +351,7 @@ def intrinsics_batch(
     return seed, out
 
 
+@profiling.traced("schur")
 def intrinsics_facade_batch(
     obj_xy,
     img_uv,
@@ -385,19 +397,20 @@ def intrinsics_facade_batch(
     view_valid = torch.ones((b, v), dtype=dtype, device=device) if view_valid is None else view_valid.to(dtype)
     vmask = mask * view_valid[..., None]
 
-    seed = intrinsics_linear.estimate_intrinsics(obj_xy, img_uv, vmask, bounds=bounds)
-    kmtx = seed.kmtx
-    if zero_skew:
-        kmtx = kmtx.clone()
-        kmtx[..., 4] = 0.0
-    _, _, _, pose_ok = planarpose.pose_from_homography_pixel(kmtx[:, None, :], seed.homographies)
-    init_poses = planarpose.estimate_planar_pose(
-        obj_xy, img_uv, kmtx[:, None, :].expand(b, v, 5), vmask
-    )
-    safe = torch.eye(4, dtype=dtype, device=device)
-    safe[2, 3] = 1.0
-    good = torch.isfinite(init_poses).all(dim=-1).all(dim=-1) & (view_valid > 0)
-    init_poses = torch.where(good[..., None, None], init_poses, safe)
+    with profiling.span("schur.seed"):
+        seed = intrinsics_linear.estimate_intrinsics(obj_xy, img_uv, vmask, bounds=bounds)
+        kmtx = seed.kmtx
+        if zero_skew:
+            kmtx = kmtx.clone()
+            kmtx[..., 4] = 0.0
+        _, _, _, pose_ok = planarpose.pose_from_homography_pixel(kmtx[:, None, :], seed.homographies)
+        init_poses = planarpose.estimate_planar_pose(
+            obj_xy, img_uv, kmtx[:, None, :].expand(b, v, 5), vmask
+        )
+        safe = torch.eye(4, dtype=dtype, device=device)
+        safe[2, 3] = 1.0
+        good = torch.isfinite(init_poses).all(dim=-1).all(dim=-1) & (view_valid > 0)
+        init_poses = torch.where(good[..., None, None], init_poses, safe)
 
     if two_phase is None:
         two_phase = b >= TWO_PHASE_MIN_BATCH
@@ -422,7 +435,8 @@ def reprojection_rms_batch(c_se3_t, intrs, obj_xy, img_uv, mask=None):
     """
     if mask is None:
         mask = torch.ones(obj_xy.shape[:3], dtype=torch.float32, device=obj_xy.device)
-    return projection_rms_f32(c_se3_t, intrs, obj_xy, img_uv, mask)
+    with profiling.span("k1.rms"):
+        return projection_rms_f32(c_se3_t, intrs, obj_xy, img_uv, mask)
 
 
 def _extrinsics_phased_solve(opts: ExtrinsicOptions, solver: str, model):
@@ -487,6 +501,7 @@ def extrinsics_batch(
         _extrinsics_phased_solve(opts, solver, model), (obj_xy, img_uv, mask),
         (init_intrs, init_c_se3_r, init_r_se3_t),
         _phase_budget(opts.core.max_iterations, (EXTRINSICS_PHASE_CAP, EXTRINSICS_PHASE_MID)),
+        "schur" if solver == "schur" else "dense",
     )
     n_amb = c * model.param_count + 7 * c + 7 * v
     cov = torch.zeros((b, n_amb, n_amb), dtype=dtype, device=obj_xy.device)
@@ -546,7 +561,7 @@ def homography_batch(
         return optimize_homography_device(init_h, obj_xy, img_uv, mask, options=options)
     lm_m, (h_m,) = _phased_lm(
         _homography_phased_solve(options), (obj_xy, img_uv, mask), (init_h,),
-        _phase_budget(options.max_iterations, (HOMOG_PHASE_CAP,)),
+        _phase_budget(options.max_iterations, (HOMOG_PHASE_CAP,)), "dense",
     )
     if options.compute_covariance:
         cov, cov_ok = homography_covariance_device(h_m, obj_xy, img_uv, mask, options)
@@ -598,6 +613,7 @@ def _bundle_phased_solve(opts: BundleOptions, analytic_jac: bool):
     return solve
 
 
+@profiling.traced("dense")
 def bundle_batch(
     obj_xy, img_uv, b_se3_g, cam_idx, init_intrs, init_g_se3_c, init_b_se3_t,
     mask=None, opts: Optional[BundleOptions] = None, mesh=None,
@@ -632,7 +648,7 @@ def bundle_batch(
     lm_m, (intr_m, g_m, b_m) = _phased_lm(
         _bundle_phased_solve(opts, analytic), (obj_xy, img_uv, b_se3_g, cam_idx, mask),
         (init_intrs, init_g_se3_c, init_b_se3_t),
-        _phase_budget(opts.core.max_iterations, (BUNDLE_PHASE_CAP,)),
+        _phase_budget(opts.core.max_iterations, (BUNDLE_PHASE_CAP,)), "dense",
     )
     c = init_intrs.shape[1]
     n_amb = c * PINHOLE.param_count + 7 * c + 7

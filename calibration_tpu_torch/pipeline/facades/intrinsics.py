@@ -36,6 +36,7 @@ from ...ops import ransac as ransac_mod
 from ...optim import IntrinsicsOptimOptions, IntrinsicsOptimizationResult, optimize_intrinsics
 from ...optim.core import OptimResult, TerminationType, brief_report
 from ...parallel.batched import intrinsics_facade_batch
+from ...utils import profiling
 from ...utils.lazy import BatchFetcher, LazyDeviceArray
 from ..dataset import PlanarDetections
 from ..planar_utils import bucket_points, bucket_views, make_planar_arrays, pad_views
@@ -283,6 +284,7 @@ class PlanarIntrinsicCalibrationFacade:
             view_valid=view_valid, bounds=bounds, v_real=v_real, active=active,
         )
 
+    @profiling.traced("prefilter")
     def _prefilter(self, problems: List[_PreparedProblem], ropts: ransac_mod.RansacOptions):
         """RANSAC homography prefilter of every real view of ``problems``
         (one point bucket) in ONE batched run, one lane per view. A view
@@ -294,7 +296,8 @@ class PlanarIntrinsicCalibrationFacade:
         uv = np.concatenate([p.uv[: p.v_real] for p in problems])
         mask = self._tensor(np.concatenate([p.mask[: p.v_real] for p in problems]), torch.bool)
         rr = ransac_mod.ransac_homography(self._tensor(obj), self._tensor(uv), ropts, mask=mask)
-        keep = torch.where(rr.success[:, None], rr.inlier_mask, mask).cpu().numpy()
+        with profiling.sync("prefilter.keep"):
+            keep = torch.where(rr.success[:, None], rr.inlier_mask, mask).cpu().numpy()
         for p, k in zip(problems, np.split(keep, cut)):
             p.mask[: p.v_real] = k
 
@@ -389,12 +392,13 @@ class PlanarIntrinsicCalibrationFacade:
 
         results: List = [None] * len(jobs)
         prepared: List[Optional[_PreparedProblem]] = [None] * len(jobs)
-        for i, (cam_cfg, det) in enumerate(jobs):
-            try:
-                get_model(cam_cfg.model)
-                prepared[i] = self._prepare(cfg, cam_cfg, det)
-            except Exception as ex:  # noqa: BLE001 — per-sensor isolation
-                results[i] = ex
+        with profiling.span("facade.prepare"):
+            for i, (cam_cfg, det) in enumerate(jobs):
+                try:
+                    get_model(cam_cfg.model)
+                    prepared[i] = self._prepare(cfg, cam_cfg, det)
+                except Exception as ex:  # noqa: BLE001 — per-sensor isolation
+                    results[i] = ex
         live = [i for i, p in enumerate(prepared) if p is not None]
 
         ransac_cfg = cfg.options.estim_options.homography_ransac
@@ -431,45 +435,46 @@ class PlanarIntrinsicCalibrationFacade:
                  pose_ok_d, lm_d, intr_d, poses_d, view_err_d, cov_ok_d, rms_chk_d)
             )
             cov_fetcher = BatchFetcher(cov_d)
-            for j, i in enumerate(idxs):
-                p = prepared[i]
-                out = p.out
-                if not _fill_linear_outputs(
-                    out, p, kmtx_b[j], bool(k_ok_b[j]), h_ok_b[j], hs_b[j], h_rms_b[j],
-                    pose_ok_b[j],
-                ):
-                    results[i] = RuntimeError("Linear intrinsic estimation failed to converge.")
-                    continue
+            with profiling.span("facade.results"):
+                for j, i in enumerate(idxs):
+                    p = prepared[i]
+                    out = p.out
+                    if not _fill_linear_outputs(
+                        out, p, kmtx_b[j], bool(k_ok_b[j]), h_ok_b[j], hs_b[j], h_rms_b[j],
+                        pose_ok_b[j],
+                    ):
+                        results[i] = RuntimeError("Linear intrinsic estimation failed to converge.")
+                        continue
 
-                core = OptimResult(
-                    success=bool(lm_out.success[j]),
-                    covariance=(
-                        LazyDeviceArray(cov_fetcher, j)
-                        if opts.core.compute_covariance and bool(cov_ok_b[j])
-                        else None
-                    ),
-                    final_cost=float(lm_out.cost[j]),
-                    iterations=int(lm_out.iterations[j]),
-                    termination=TerminationType(int(lm_out.termination[j])),
-                    initial_cost=float(lm_out.initial_cost[j]),
-                )
-                core.report = brief_report(core)
-                refine = IntrinsicsOptimizationResult(
-                    core=core,
-                    camera=intr_b[j],
-                    c_se3_t=poses_b[j][: p.v_real],
-                    view_errors=view_err_b[j][: p.v_real],
-                )
-                if model.qa_recheck:
-                    out.view_rms_check = rms_chk_b[j][: p.v_real]
-                    valid = np.asarray(p.view_valid[: p.v_real], bool)
-                    delta = np.abs(out.view_rms_check[valid] - refine.view_errors[valid])
-                    out.rms_check_warnings = int(np.sum(delta > 5e-3))
-                if not core.success:
-                    print(_REFINE_FALLBACK_MSG, file=sys.stderr)
-                    refine.camera = _linear_fallback_camera(kmtx_b[j], zero_skew, model.param_count)
-                _finalize_outputs(out, p, refine)
-                results[i] = out
+                    core = OptimResult(
+                        success=bool(lm_out.success[j]),
+                        covariance=(
+                            LazyDeviceArray(cov_fetcher, j)
+                            if opts.core.compute_covariance and bool(cov_ok_b[j])
+                            else None
+                        ),
+                        final_cost=float(lm_out.cost[j]),
+                        iterations=int(lm_out.iterations[j]),
+                        termination=TerminationType(int(lm_out.termination[j])),
+                        initial_cost=float(lm_out.initial_cost[j]),
+                    )
+                    core.report = brief_report(core)
+                    refine = IntrinsicsOptimizationResult(
+                        core=core,
+                        camera=intr_b[j],
+                        c_se3_t=poses_b[j][: p.v_real],
+                        view_errors=view_err_b[j][: p.v_real],
+                    )
+                    if model.qa_recheck:
+                        out.view_rms_check = rms_chk_b[j][: p.v_real]
+                        valid = np.asarray(p.view_valid[: p.v_real], bool)
+                        delta = np.abs(out.view_rms_check[valid] - refine.view_errors[valid])
+                        out.rms_check_warnings = int(np.sum(delta > 5e-3))
+                    if not core.success:
+                        print(_REFINE_FALLBACK_MSG, file=sys.stderr)
+                        refine.camera = _linear_fallback_camera(kmtx_b[j], zero_skew, model.param_count)
+                    _finalize_outputs(out, p, refine)
+                    results[i] = out
         return results
 
 

@@ -23,6 +23,7 @@ from ..optim.bundle import BundleResult, bundle_result, optimize_bundle_device
 from ..optim.core import OptimOptions, OptimResult, TerminationType, brief_report
 from ..optim.extrinsics import ExtrinsicOptimizationResult, optimize_extrinsics_device
 from ..optim.handeye import HandeyeResult, _wrap_result, estimate_and_optimize_handeye_device
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +135,7 @@ def handeye_fleet(
     return out
 
 
+@profiling.traced("dense")
 def planar_handeye_fleet(
     jobs: Sequence[Tuple[List[np.ndarray], List[np.ndarray], np.ndarray, np.ndarray, float, OptimOptions]],
     device,
@@ -300,6 +302,7 @@ def _averaged_target(ct, bg, cam_idx, g0):
     return se3.average_isometries(cand, torch.ones(cand.shape[:2], dtype=cand.dtype, device=cand.device))
 
 
+@profiling.traced("dense")
 def bundle_fused_fleet(jobs: Sequence[FusedBundleJob], device) -> List[Tuple[BundleResult, np.ndarray]]:
     """The bundle stage's device work in one batched solve per
     (O, N, C, pc, opts) bucket on ``device``: planar poses, the averaged

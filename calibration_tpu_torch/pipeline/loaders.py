@@ -13,6 +13,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from ..io import jsonio
+from ..utils import profiling
 from .dataset import CalibrationDataset, PlanarDetections, PlanarImageDetections
 
 
@@ -112,6 +113,7 @@ class JsonPlanarDatasetLoader(DatasetLoader):
     def add_entry(self, path, sensor_id: Optional[str] = None) -> None:
         self.entries.append(Entry(str(path), sensor_id))
 
+    @profiling.traced("ingest")
     def load(self) -> CalibrationDataset:
         if not self.entries:
             raise RuntimeError("JsonPlanarDatasetLoader: no dataset entries configured.")
@@ -151,6 +153,7 @@ class JsonPlanarDatasetLoader(DatasetLoader):
         return dataset
 
 
+@profiling.traced("ingest")
 def read_detections(path) -> PlanarDetections:
     """One detections file, parsed as ``JsonPlanarDatasetLoader`` parses it
     (the native codec when it is available); ``source_file`` is ``path``."""

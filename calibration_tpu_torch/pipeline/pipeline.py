@@ -14,6 +14,7 @@ import sys
 import time
 from typing import Any, Dict, List, Optional
 
+from ..utils import profiling
 from .dataset import CalibrationDataset
 from .loaders import DatasetLoader
 
@@ -150,9 +151,10 @@ class CalibrationPipeline:
         for stage in self._stages:
             for deco in self._decorators:
                 deco.before_stage(stage, context)
-            t0 = time.time()
-            result = stage.run(context)
-            result.duration_s = time.time() - t0
+            t0 = time.perf_counter()
+            with profiling.span(f"stage.{stage.name()}"):
+                result = stage.run(context)
+            result.duration_s = time.perf_counter() - t0
             if not result.name:
                 result.name = stage.name()
             for deco in self._decorators:

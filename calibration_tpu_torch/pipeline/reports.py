@@ -25,6 +25,7 @@ from .facades.intrinsics import (
     IntrinsicCalibrationOutputs,
 )
 from ..io import jsonio
+from ..utils import profiling
 
 REPORT_TYPE = "intrinsics"
 REPORT_ALGORITHM_PLANAR = "planar_zhang_lm"
@@ -43,6 +44,7 @@ def _weighted_global_rms(view_errors: np.ndarray, counts: List[int]) -> float:
     return float(np.sqrt(np.sum(w * e * e) / total))
 
 
+@profiling.traced("write")
 def build_camera_report(
     cam_cfg: CameraConfig,
     detections: PlanarDetections,
@@ -156,6 +158,7 @@ class CalibrationReport:
     cameras: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
+@profiling.traced("write")
 def build_planar_intrinsics_report(
     cfg: IntrinsicCalibrationConfig,
     entries: List[tuple],  # [(CameraConfig, PlanarDetections, IntrinsicCalibrationOutputs)]

@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import profiling
+
 
 class BatchFetcher:
     """Holds a device tensor; materializes the whole thing once on demand."""
@@ -31,7 +33,8 @@ class BatchFetcher:
 
     def get(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._device.detach().cpu().numpy()
+            with profiling.sync("lazy_fetch"):
+                self._host = self._device.detach().cpu().numpy()
             self._device = None  # free the device reference
         return self._host
 

@@ -199,7 +199,7 @@ from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_bat
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
 from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh
 from calibration_tpu_torch.optim import homography as homography_opt
-from calibration_tpu_torch.utils import device_trace, lm_cost_trace
+from calibration_tpu_torch.utils import device_trace, lm_cost_trace, profiling
 from calibration_tpu_torch.pipeline import loaders, reports, stages
 from calibration_tpu_torch.pipeline.facades import extrinsics as extrinsics_facade_mod
 from calibration_tpu_torch.pipeline.facades import intrinsics as facade_mod
@@ -1173,12 +1173,12 @@ def pipeline_phase(card: str) -> int:
             zero_launches()
             art, wall, seconds = run_pipeline(input_path, Path(tmp) / f"artifacts_{call}.json", "cuda")
             if launches is None:
-                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
+                launches = k1_launches()["rms"]  # the path's one counted run; the warm call repeats it
             layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
             print(f"[smoke] pipeline {call} call: {wall!r} s = {PIPELINE_RIGS / wall!r} rigs/s on {card}; "
-                  f"{layers}; other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}")
+                  f"{layers}; other {wall - sum(seconds.values())!r} s; K1 launches {k1_launches()}")
             check_pipeline_artifacts(art, PIPELINE_RIGS)
-            check(pr.launches["rms"] > 0, "the pipeline's intrinsics stage launched K1 in RMS mode")
+            check(k1_launches()["rms"] > 0, "the pipeline's intrinsics stage launched K1 in RMS mode")
 
         k = PIPELINE_PARITY_RIGS
         (Path(tmp) / "small").mkdir()
@@ -1201,17 +1201,17 @@ def app_phase(card: str) -> int:
         launches = None
         for call in ("first", "warm"):
             zero_launches()
-            rounds = ransac.rounds["cuda"]
+            rounds = ransac_rounds("cuda")
             report, wall, seconds = run_app(config, features, Path(tmp) / f"report_{call}.json", "cuda")
-            rounds = ransac.rounds["cuda"] - rounds
+            rounds = ransac_rounds("cuda") - rounds
             if launches is None:
-                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
+                launches = k1_launches()["rms"]  # the path's one counted run; the warm call repeats it
             layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
             print(f"[smoke] app {call} call: {wall!r} s = {FLEET / wall!r} sensors/s on {card}; {layers}; "
-                  f"other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}, "
+                  f"other {wall - sum(seconds.values())!r} s; K1 launches {k1_launches()}, "
                   f"prefilter rounds on the card {rounds}")
             check_fleet_report(report, displaced)
-            check(pr.launches["rms"] > 0, "the app launched K1 in RMS mode")
+            check(k1_launches()["rms"] > 0, "the app launched K1 in RMS mode")
             check(rounds > 0, "the app's RANSAC prefilter ran on the card")
 
         k = PARITY_SENSORS
@@ -1526,12 +1526,12 @@ def handeye_pipeline_phase(card: str) -> int:
             zero_launches()
             art, wall, seconds = run_handeye_pipeline(fleet["input_path"], Path(tmp) / f"he_{call}.json", "cuda")
             if launches is None:
-                launches = pr.launches["rms"]  # the path's one counted run; the warm call repeats it
+                launches = k1_launches()["rms"]  # the path's one counted run; the warm call repeats it
             layers = ", ".join(f"{k} {v!r} s" for k, v in sorted(seconds.items()))
             print(f"[smoke] hand-eye pipeline {call} call: {wall!r} s = {HE_PIPELINE_RIGS / wall!r} rigs/s on "
-                  f"{card}; {layers}; other {wall - sum(seconds.values())!r} s; K1 launches {pr.launches}")
+                  f"{card}; {layers}; other {wall - sum(seconds.values())!r} s; K1 launches {k1_launches()}")
             check_handeye_artifacts(art, fleet)
-            check(pr.launches["rms"] > 0, "the hand-eye pipeline's intrinsics stage launched K1 in RMS mode")
+            check(k1_launches()["rms"] > 0, "the hand-eye pipeline's intrinsics stage launched K1 in RMS mode")
 
         k = HE_PIPELINE_PARITY_RIGS
         (Path(tmp) / "small").mkdir()
@@ -1560,7 +1560,7 @@ def warm_median(run, dev):
 
 
 def check_no_launches(what):
-    check(pr.launches == {"residuals": 0, "rms": 0}, f"{what} launched no K1 kernel (the path has none)")
+    check(k1_launches() == {"residuals": 0, "rms": 0}, f"{what} launched no K1 kernel (the path has none)")
 
 
 def linescan_phase(dev, card):
@@ -1613,9 +1613,9 @@ def linescan_ransac_phase(dev, card, row):
     run = functools.partial(linescan_ransac_batch, *(torch.as_tensor(a, device=dev) for a in p[:4]), options=opts,
                             model_name=model)
     zero_launches()
-    rounds = ransac.rounds[dev.type]
+    rounds = ransac_rounds(dev.type)
     res, first_s = timed(run, dev)
-    rounds = ransac.rounds[dev.type] - rounds
+    rounds = ransac_rounds(dev.type) - rounds
     check_no_launches(f"row {row}")
     angle = float(plane_angles_deg(res.plane.cpu().numpy(), p[4]).max())
     counts = res.inlier_count.cpu().numpy()
@@ -1891,7 +1891,7 @@ def mesh_facade_cell(dev, card, mesh, b, what, calls):
     }
     zero_launches()
     (_, _, out, rms_check), first_s = timed(runs["sharded"], dev)
-    launches = pr.launches["rms"]
+    launches = k1_launches()["rms"]
     lm = out[0]
     check(bool(lm.success.all()), f"{what}: all {b} lanes converged")
     check(out[1].shape == (b, 10) and out[1].device == mesh.devices[0] and rms_check.shape[0] == b,
@@ -1899,7 +1899,7 @@ def mesh_facade_cell(dev, card, mesh, b, what, calls):
     fx_err = float((out[1][:, 0] - intr_gt[0]).abs().mean())
     check(fx_err < 5.0, f"{what}: mean |fx - 600| < 5 px")
     if dev.type == "cuda":
-        check(launches == mesh.size and pr.launches["residuals"] == 0,
+        check(launches == mesh.size and k1_launches()["residuals"] == 0,
               f"{what}: one K1 launch in RMS mode per shard ({mesh.size})")
     ones = torch.ones(obj_d.shape[:3], dtype=obj_d.dtype, device=dev)
     plain = pr.projection_rms_plain(out[2], out[1], obj_d[:b], uv_d[:b], ones)
@@ -2137,9 +2137,25 @@ def linescan_app_phase(card, device="cuda"):
                   f"app's artifact within the report bounds")
 
 
+_K1_ZERO = {"residuals": 0, "rms": 0}  # the counts at the last zero_launches()
+
+
+def k1_launches() -> dict:
+    """K1's launches by mode since the last ``zero_launches()``, from the
+    program's counter store (``k1.launches.<mode>``)."""
+    c = profiling.counters()
+    return {mode: c.get(f"k1.launches.{mode}", 0) - zero for mode, zero in _K1_ZERO.items()}
+
+
 def zero_launches() -> None:
-    for mode in pr.launches:
-        pr.launches[mode] = 0
+    c = profiling.counters()
+    for mode in _K1_ZERO:
+        _K1_ZERO[mode] = c.get(f"k1.launches.{mode}", 0)
+
+
+def ransac_rounds(device_type: str) -> int:
+    """RANSAC rounds run so far on ``device_type`` (``ransac.rounds.<type>``)."""
+    return profiling.counters().get(f"ransac.rounds.{device_type}", 0)
 
 
 def start_ptxas_report() -> subprocess.Popen:
@@ -2210,7 +2226,7 @@ def main() -> int:
     _, _, out, rms_check = intrinsics_facade_batch(obj_d, uv_d, opts=opts)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    facade_launches = dict(pr.launches)
+    facade_launches = k1_launches()
     lm_out, intr, poses, view_errors, cov, cov_ok = out
     n_ok = int(lm_out.success.sum())
     rms = float(torch.sqrt(torch.mean(view_errors**2)))
@@ -2239,11 +2255,11 @@ def main() -> int:
     rows = qa_rows(poses, intr, obj_d, uv_d, ones)
     res = pr.projection_residuals_f32(*rows)
     torch.cuda.synchronize()
-    residual_launches = pr.launches["residuals"]
+    residual_launches = k1_launches()["residuals"]
     diff = float((pr._rms_from_residuals(res, rows[5]).reshape(rms_check.shape) - rms_check).abs().max())
-    print(f"[smoke] residual op on the solved fleet: {tuple(res.shape)}, K1 launches {pr.launches}, "
+    print(f"[smoke] residual op on the solved fleet: {tuple(res.shape)}, K1 launches {k1_launches()}, "
           f"max |RMS of its residuals - QA recheck| {diff!r} px")
-    check(residual_launches == 1 and pr.launches["rms"] == 0, "the residual op is one K1 launch in residual mode")
+    check(residual_launches == 1 and k1_launches()["rms"] == 0, "the residual op is one K1 launch in residual mode")
     check(diff <= KERNEL_ATOL_PX, f"the residual op's RMS within {KERNEL_ATOL_PX} px of the QA recheck")
 
     k = 8

@@ -45,7 +45,8 @@ from calibration_tpu_torch.optim import optimize_intrinsics_semidlt, optimize_in
 from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
 from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh, planar_pose_batch
-from torch_helpers import assert_reports_match
+from calibration_tpu_torch.utils import profiling
+from torch_helpers import assert_reports_match, k1_launches, ransac_rounds
 
 pytestmark = pytest.mark.cuda
 
@@ -77,10 +78,10 @@ def _rows(r, n, seed):
 @pytest.mark.parametrize("r,n,seed", [(5, 37, 2), (19, 150, 5), (2560, 88, 11), (70000, 3, 1)])
 def test_kernel_matches_plain(cuda_device, r, n, seed):
     arrays = _rows(r, n, seed)
-    before = pr.launches["residuals"]
+    before = k1_launches()["residuals"]
     got = pr.projection_residuals_f32(*(torch.as_tensor(a, device=cuda_device) for a in arrays))
     torch.cuda.synchronize()
-    assert pr.launches["residuals"] == before + 1
+    assert k1_launches()["residuals"] == before + 1
     ref = pr.projection_residuals_plain(
         *(torch.as_tensor(a, dtype=torch.float64, device=cuda_device) for a in arrays)
     )
@@ -101,11 +102,11 @@ def test_rms_mode_matches_plain(cuda_device, b, v, n, seed, dtype):
     args = [poses.reshape(b, v, 4, 4), intr[::v].copy(), obj.reshape(b, v, n, 2), uv.reshape(b, v, n, 2),
             mask.reshape(b, v, n)]
     card = [torch.as_tensor(a, dtype=dtype if a.dtype != bool else None, device=cuda_device) for a in args]
-    before = pr.launches["rms"]
+    before = k1_launches()["rms"]
     got = pr.projection_rms_f32(*card)
     again = pr.projection_rms_f32(*card)
     torch.cuda.synchronize()
-    assert pr.launches["rms"] == before + 2 and got.dtype == torch.float32 and got.shape == (b, v)
+    assert k1_launches()["rms"] == before + 2 and got.dtype == torch.float32 and got.shape == (b, v)
     plain64 = _rms_plain_f64(*(torch.as_tensor(a, device=cuda_device) for a in args))
     plain32 = pr.projection_rms_plain(*card)
     assert float((got.double() - plain64).abs().max()) <= ATOL_PX
@@ -141,12 +142,12 @@ def test_facade_on_card_matches_cpu(cuda_device):
     obj = torch.as_tensor(np.broadcast_to(grid, (b, v) + grid.shape).copy())
     opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, epsilon=1e-9))
 
-    before = dict(pr.launches)
+    before = k1_launches()
     _, _, out_gpu, rms_gpu = intrinsics_facade_batch(
         obj.to(cuda_device), uv.to(cuda_device), opts=opts, two_phase=True
     )
     torch.cuda.synchronize()
-    assert pr.launches == dict(before, rms=before["rms"] + 1)  # the QA recheck: one RMS launch
+    assert k1_launches() == dict(before, rms=before["rms"] + 1)  # the QA recheck: one RMS launch
     _, _, out_cpu, rms_cpu = intrinsics_facade_batch(obj, uv, opts=opts, two_phase=True)
     assert bool(out_gpu[0].success.all())
     assert torch.equal(out_gpu[0].linearizations.cpu(), out_cpu[0].linearizations)
@@ -181,13 +182,13 @@ def test_prefilter_on_card_recovers_planted_outliers(cuda_device):
     mask[:2, -10:] = False
     obj = np.broadcast_to(grid, (v, n, 2)).copy()
     opts = ransac.RansacOptions()
-    before = ransac.rounds["cuda"]
+    before = ransac_rounds("cuda")
     got = ransac.ransac_homography(
         *(torch.as_tensor(a, device=cuda_device) for a in (obj, uv)), opts,
         mask=torch.as_tensor(mask, device=cuda_device),
     )
     torch.cuda.synchronize()
-    assert ransac.rounds["cuda"] > before
+    assert ransac_rounds("cuda") > before
     assert bool(got.success.all())
     np.testing.assert_array_equal(got.inlier_mask.cpu().numpy(), mask & ~planted)
     cpu = ransac.ransac_homography(torch.as_tensor(obj), torch.as_tensor(uv), opts, mask=torch.as_tensor(mask))
@@ -200,7 +201,7 @@ def test_app_on_card_matches_cpu(cuda_device, tmp_path):
     reports = []
     for device in ("cuda", "cpu"):
         out = tmp_path / f"{device}.json"
-        before = pr.launches["rms"]
+        before = k1_launches()["rms"]
         argv = [
             "--fleet", "--device", device, "--config", "examples/data/planar_intrinsics_config.json",
             "--features", "examples/data/detections_cam0.json", "examples/data/detections_cam1.json",
@@ -208,7 +209,7 @@ def test_app_on_card_matches_cpu(cuda_device, tmp_path):
         ]
         assert planar_intrinsics.main(argv) == 0
         if device == "cuda":
-            assert pr.launches["rms"] == before + 1  # the QA recheck ran the kernel
+            assert k1_launches()["rms"] == before + 1  # the QA recheck ran the kernel
         reports.append(json.loads(out.read_text()))
     assert_reports_match(reports[1], reports[0])
 
@@ -240,11 +241,11 @@ def test_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
     arts = []
     for device in ("cuda", "cpu"):
         out = tmp_path / f"{device}.json"
-        before = pr.launches["rms"]
+        before = k1_launches()["rms"]
         argv = ["--input", "examples/data/pipeline_input.json", "--output", str(out), "--device", device]
         assert intrinsic_extrinsic_pipeline.main(argv) == 0
         if device == "cuda":
-            assert pr.launches["rms"] > before
+            assert k1_launches()["rms"] > before
         arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
     assert_reports_match(arts[1], arts[0])
 
@@ -331,10 +332,10 @@ def test_bundle_pipeline_app_on_card_matches_cpu(cuda_device, tmp_path):
     arts = []
     for device in ("cuda", "cpu"):
         out = tmp_path / f"{device}.json"
-        before = pr.launches["rms"]
+        before = k1_launches()["rms"]
         assert bundle_pipeline.main(["--input", fleet["input_path"], "--output", str(out), "--device", device]) == 0
         if device == "cuda":
-            assert pr.launches["rms"] > before
+            assert k1_launches()["rms"] > before
         arts.append(chip_smoke.without_durations(json.loads(out.read_text())))
     assert [s["name"] for s in arts[0]["pipeline_summary"]["stages"]] == ["intrinsics", "hand_eye", "bundle"]
     assert_reports_match(arts[1], arts[0])
@@ -361,10 +362,10 @@ def test_linescan_batch_on_card_matches_cpu(cuda_device, model):
     RMS within 1e-9, the same point counts and ok; no K1 launch."""
     tilt = chip_smoke.LINESCAN_TILT if model == chip_smoke.SCHEIM_NAME else None
     p = chip_smoke.linescan_problems(16, tilt_tau=tilt)
-    before = dict(pr.launches)
+    before = k1_launches()
     gpu = linescan_batch(*(torch.as_tensor(a, device=cuda_device) for a in p[:4]), model_name=model)
     cpu = linescan_batch(*(torch.as_tensor(a) for a in p[:4]), model_name=model)
-    assert pr.launches == before and bool(gpu.ok.all())
+    assert k1_launches() == before and bool(gpu.ok.all())
     for name in ("plane", "homography", "rms_error"):
         assert float((getattr(gpu, name).cpu() - getattr(cpu, name)).abs().max()) <= 1e-9, name
     assert torch.equal(gpu.inlier_count.cpu(), cpu.inlier_count) and torch.equal(gpu.ok.cpu(), cpu.ok)
@@ -380,10 +381,10 @@ def test_linescan_ransac_batch_on_card_matches_cpu(cuda_device, row):
     camera, obj, tuv, luv, _ = chip_smoke.linescan_ransac_problems(row, tilt)
     args = [a[:16] for a in (camera, obj, tuv, luv)]
     opts = ransac.RansacOptions(**chip_smoke.LINESCAN_RANSAC_OPTS)
-    rounds = ransac.rounds["cuda"]
+    rounds = ransac_rounds("cuda")
     gpu = linescan_ransac_batch(*(torch.as_tensor(a, device=cuda_device) for a in args), options=opts,
                                 model_name=model)
-    assert ransac.rounds["cuda"] > rounds
+    assert ransac_rounds("cuda") > rounds
     cpu = linescan_ransac_batch(*(torch.as_tensor(a) for a in args), options=opts, model_name=model)
     assert bool(gpu.ok.all())
     assert torch.equal(gpu.inlier_count.cpu(), cpu.inlier_count) and torch.equal(gpu.ok.cpu(), cpu.ok)
@@ -398,12 +399,12 @@ def test_scheimpflug_intrinsics_batch_on_card_matches_cpu(cuda_device, row):
     tilt, _ = chip_smoke.SCHEIM_ROWS[row]
     obj, uv, _ = chip_smoke.scheimpflug_problems(8, tilt)
     opts = chip_smoke.scheimpflug_opts(row)
-    before = dict(pr.launches)
+    before = k1_launches()
     _, gpu = intrinsics_batch(torch.as_tensor(obj, device=cuda_device), torch.as_tensor(uv, device=cuda_device),
                               opts=opts, model_name=chip_smoke.SCHEIM_NAME, two_phase=True)
     _, cpu = intrinsics_batch(torch.as_tensor(obj), torch.as_tensor(uv), opts=opts,
                               model_name=chip_smoke.SCHEIM_NAME, two_phase=True)
-    assert pr.launches == before and bool(gpu[0].success.all())
+    assert k1_launches() == before and bool(gpu[0].success.all())
     _lm_equal(gpu[0], cpu[0])
     if opts.core.compute_covariance:
         scale = cpu[4].abs().amax(dim=(-2, -1))
@@ -459,10 +460,10 @@ def test_planar_pose_on_card_matches_cpu(cuda_device):
     1e-6 of its largest entry; no K1 launch."""
     obj, uv, kmtx, _ = chip_smoke.planar_problems(4)
     args = [a[:32] for a in (obj, uv, kmtx)]
-    before = dict(pr.launches)
+    before = k1_launches()
     gpu = planar_pose_batch(*(torch.as_tensor(a, device=cuda_device) for a in args))
     cpu = planar_pose_batch(*(torch.as_tensor(a) for a in args))
-    assert pr.launches == before and bool(gpu[0].success.all())
+    assert k1_launches() == before and bool(gpu[0].success.all())
     for name in chip_smoke.PLANAR_PARITY_COUNTERS:
         assert torch.equal(getattr(gpu[0], name).cpu(), getattr(cpu[0], name)), name
     assert float(((gpu[0].cost.cpu() - cpu[0].cost).abs() / cpu[0].cost).max()) <= 1e-7
@@ -507,10 +508,10 @@ def test_scheimpflug_extrinsics_on_card_matches_cpu(cuda_device, solver, jac_mod
     p = chip_smoke.stereo_problems(8, tilt_tau=chip_smoke.SOLVER_TILT)
     keys = ("obj", "uv", "intr0", "c0", "r0")
     opts = ExtrinsicOptions(core=OptimOptions(max_iterations=50), optimize_intrinsics=False)
-    before = dict(pr.launches)
+    before = k1_launches()
     gpu, cpu = (optimize_extrinsics_device(*(torch.as_tensor(p[k], device=d) for k in keys), model=SCHEIMPFLUG,
                                            opts=opts, solver=solver, jac_mode=jac_mode) for d in (cuda_device, "cpu"))
-    assert pr.launches == before and bool(gpu[0].success.all())
+    assert k1_launches() == before and bool(gpu[0].success.all())
     _lm_equal(gpu[0], cpu[0])
     scale = cpu[4].abs().amax(dim=(-2, -1))
     assert bool(((gpu[4].cpu() - cpu[4]).abs().amax(dim=(-2, -1)) <= 1e-6 * scale).all())
@@ -558,11 +559,10 @@ def test_two_shard_mesh_of_one_card_gives_the_unsharded_result(cuda_device):
 @pytest.mark.parametrize("shards", [1, 2, 3])
 def test_sharded_facade_launches_k1_once_per_shard(cuda_device, shards):
     obj, uv, opts = _facade_set(cuda_device)
-    for mode in pr.launches:
-        pr.launches[mode] = 0
+    before = k1_launches()
     intrinsics_facade_batch(obj, uv, opts=opts, mesh=make_mesh([cuda_device] * shards))
     torch.cuda.synchronize()
-    assert pr.launches == {"residuals": 0, "rms": shards}
+    assert k1_launches() == {"residuals": before["residuals"], "rms": before["rms"] + shards}
 
 
 def test_mixed_runs_its_coarse_phase_in_float32_on_card(cuda_device, monkeypatch):
@@ -602,3 +602,34 @@ def test_a_fresh_process_may_start_on_a_mesh(cuda_device):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
 
+
+
+def test_k1_launches_fall_inside_k1_rms_spans(cuda_device, tmp_path):
+    """A batch-256 facade call traced by ``torch.profiler`` (device
+    activity) with the program's spans on: through the tracer's clock
+    anchor, every ``cudaLaunchKernel`` of K1 lies inside a ``k1.rms`` span,
+    to within 50 us."""
+    obj, uv, opts = _facade_set(cuda_device, b=256)
+    intrinsics_facade_batch(obj, uv, opts=opts)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with profiling.tracing() as handle, torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for _ in range(2):
+            intrinsics_facade_batch(obj, uv, opts=opts)
+        torch.cuda.synchronize()
+    drained = handle.drain()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = trace["traceEvents"]
+    k1 = {e["args"]["correlation"] for e in events
+          if e.get("cat") == "kernel" and "projection_kernel" in e.get("name", "")}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaLaunchKernel"
+                and e.get("args", {}).get("correlation") in k1]
+    spans = [((profiling.unix_ns(s.start_ns, drained.anchor) - base) / 1e3,
+              (profiling.unix_ns(s.end_ns, drained.anchor) - base) / 1e3)
+             for s in drained.spans if s.name == "k1.rms"]
+    assert len(spans) == 2 and len(launches) == 2
+    for e in launches:
+        start, end = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        assert any(a - 50.0 <= start and end <= b + 50.0 for a, b in spans), (start, end, spans)

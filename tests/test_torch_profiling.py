@@ -153,9 +153,15 @@ def test_step_function_runs_lm_core():
 
 
 def test_device_trace_and_timer(tmp_path):
+    m = manifold.ProductManifold([manifold.euclid(2)])
     with Timer() as t, device_trace(str(tmp_path / "trace")):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        lm.lm_core(_rosenbrock_t, t64(STARTS), m, options=OptimOptions(huber_delta=0.0, max_iterations=5))
     files = list((tmp_path / "trace").glob("trace_*.json"))
     assert len(files) == 1 and t.elapsed > 0
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+    # the program's spans, on a track of their own
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert any(e["name"] == "dense.linearize" for e in spans)
+    assert {e["tid"] for e in spans}.isdisjoint(e.get("tid") for e in events if e.get("cat") == "cpu_op")

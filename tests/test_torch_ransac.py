@@ -25,7 +25,7 @@ from calibration_tpu.ops import homography as jh
 from calibration_tpu.ops import ransac as jr
 from calibration_tpu_torch.ops import homography as th
 from calibration_tpu_torch.ops import ransac as tr
-from torch_helpers import one_torch_thread, t64  # noqa: F401
+from torch_helpers import one_torch_thread, ransac_rounds, t64  # noqa: F401
 
 OPTS = dict(max_iters=1000, thresh=2.0, min_inliers=12)
 CLEAN, HEAVY, RAGGED = 4, 5, 1  # lanes: no outliers, ~60% outliers, masked tail
@@ -104,10 +104,10 @@ def test_lane_result_does_not_depend_on_batching(views):
 
 
 def test_round_counter_counts_rounds_by_device(views):
-    before = tr.rounds["cpu"]
+    before = ransac_rounds("cpu")
     got = _port(views)
     # round 0 runs every lane; the heavy lane alone runs the later rounds
-    assert tr.rounds["cpu"] - before == int(got.iters.max()) // 128
+    assert ransac_rounds("cpu") - before == int(got.iters.max()) // 128
 
 
 def test_round_noise_is_seeded_and_gumbel():

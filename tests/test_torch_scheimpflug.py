@@ -57,7 +57,7 @@ from calibration_tpu_torch.pipeline.dataset import PlanarDetections as TDetectio
 from calibration_tpu_torch.pipeline.facades import intrinsics as tf
 from calibration_tpu_torch.pipeline.reports import build_camera_report as treport
 from chip_smoke import detections_payload
-from torch_helpers import assert_reports_match, one_torch_thread, t64  # noqa: F401
+from torch_helpers import assert_reports_match, k1_launches, one_torch_thread, t64  # noqa: F401
 
 B, V = 3, 5
 TILT = (0.05, -0.04)
@@ -299,10 +299,10 @@ def test_facade_batch_has_no_qa_recheck_for_scheimpflug():
     rms_check and launches no kernel (the QA recheck is pinhole's)."""
     obj, uv, _, _ = scheimpflug_views()
     opts = TOpts(core=TCore(max_iterations=60, compute_covariance=False), fixed_distortion_indices=(2, 3))
-    before = dict(pr.launches)
+    before = k1_launches()
     _, _, out, rms = tbatched.intrinsics_facade_batch(t64(obj), t64(uv), opts=opts, model_name=SCHEIM,
                                                       two_phase=False)
-    assert pr.launches == before
+    assert k1_launches() == before
     assert rms.dtype == torch.float32 and rms.shape == (B, V) and not bool(rms.any())
     assert bool(out[0].success.all()) and out[1].shape == (B, 12)
 

@@ -21,6 +21,7 @@ import chip_smoke
 from calibration_tpu_torch.ops import ransac
 from calibration_tpu_torch.parallel import extrinsics_batch
 from calibration_tpu_torch.pipeline import loaders, stages
+from torch_helpers import ransac_rounds
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -30,11 +31,11 @@ def test_app_phase_checks_pass_on_cpu(tmp_path):
     (distortion included) and rejects every displaced one; all cameras
     converge at the injected noise; every layer is timed."""
     config, features, displaced = chip_smoke.write_fleet(tmp_path, 4)
-    before = ransac.rounds["cpu"]
+    before = ransac_rounds("cpu")
     reader = loaders.read_detections
     report, wall, seconds = chip_smoke.run_app(config, features, tmp_path / "r.json", "cpu")
     assert loaders.read_detections is reader  # the timers are taken off again
-    assert ransac.rounds["cpu"] > before
+    assert ransac_rounds("cpu") > before
     chip_smoke.check_fleet_report(report, displaced)
     assert set(seconds) == {"ingest", "prefilter", "solve", "qa_kernel", "report"}
     assert 0 < sum(seconds.values()) <= wall

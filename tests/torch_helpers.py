@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from calibration_tpu_torch.utils import profiling
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -23,6 +25,17 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+def k1_launches() -> dict:
+    """K1's launches so far by mode, from the program's counter store."""
+    c = profiling.counters()
+    return {"residuals": c.get("k1.launches.residuals", 0), "rms": c.get("k1.launches.rms", 0)}
+
+
+def ransac_rounds(device_type: str) -> int:
+    """RANSAC rounds run so far on ``device_type``, from the counter store."""
+    return profiling.counters().get(f"ransac.rounds.{device_type}", 0)
 
 
 def t64(a):
