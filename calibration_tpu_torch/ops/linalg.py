@@ -56,11 +56,19 @@ def cholesky(a):
 
 def spd_solve(a, b):
     """Solve SPD systems via Cholesky. a: (..., n, n); b: (..., n) or
-    (..., n, m). Non-SPD lanes give NaN."""
+    (..., n, m). Non-SPD lanes give NaN.
+
+    The factor is applied by two triangular solves, as LAPACK's potrs does
+    (on the CPU the result is ``cholesky_solve``'s, bit for bit). On CUDA a
+    batched ``cholesky_solve`` runs MAGMA, which allocates and frees device
+    memory on every call: an implicit synchronisation, and a call that a
+    CUDA graph cannot capture. The triangular solves run cuBLAS's batched
+    trsm, which does neither."""
     low = cholesky(a)
-    if b.ndim == a.ndim:
-        return torch.cholesky_solve(b, low)
-    return torch.cholesky_solve(b[..., None], low)[..., 0]
+    rhs = b if b.ndim == a.ndim else b[..., None]
+    y = torch.linalg.solve_triangular(low, rhs, upper=False)
+    x = torch.linalg.solve_triangular(low.mT, y, upper=True)
+    return x if b.ndim == a.ndim else x[..., 0]
 
 
 def spd_inverse(a):

@@ -93,8 +93,10 @@ def quat_to_rotmat(q):
 
 
 def quat_conj(q):
-    """Quaternion conjugate (w, x, y, z) -> (w, -x, -y, -z)."""
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    """Quaternion conjugate (w, x, y, z) -> (w, -x, -y, -z). (No sign
+    vector built on the host: a host-to-device copy cannot be captured in a
+    CUDA graph.)"""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_mul(a, b):
@@ -146,7 +148,7 @@ def make_se3(r, t):
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=r.dtype, device=r.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -30,6 +30,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg
 from ..utils import profiling
+from . import lm_graphs
 from .core import OptimOptions
 from .manifold import ProductManifold
 
@@ -88,6 +89,7 @@ def _robust_weights(r, blocks, num_blocks: int, huber_delta: float):
     outside; cost 0.5 * sum rho(|r_b|^2)."""
     run, ids = blocks
     b, m = r.shape
+    run = run or m  # no block_ids: one block of all rows
     if ids is None:
         s = torch.sum((r * r).reshape(b, m // run, run), dim=-1)
     else:
@@ -211,6 +213,11 @@ def make_lm_step(
     larger mu after each rejected trial, for the lanes where ``cond`` holds;
     every other lane keeps every field.
 
+    The device work falls in three segments of fixed shapes: the initial
+    cost, a linearization, a trial. With an analytic ``jac_fn`` on CUDA and
+    a key for the solve (``lm_graphs``), each is a CUDA graph from the
+    key's second solve on; the host's flag reads between them stay.
+
     Args: see ``lm_core``.
     """
     eps = options.epsilon
@@ -221,42 +228,46 @@ def make_lm_step(
     tan_free = _tan_free(manifold, free_mask, b, dtype, device)
     lo = None if lower is None else lower.to(dtype)
     up = None if upper is None else upper.to(dtype)
+    run, ids = _loss_blocks(None if block_ids is None else len(block_ids), block_ids, num_blocks, device)
+    nb = num_blocks if block_ids is not None else 1
+    data = tuple(data)
+    # what every segment reads besides its arguments, as k: (tan_free,
+    # diag_free, diag_fixed, lo, up, ids, *data)
+    consts = (tan_free, torch.diag_embed(tan_free), torch.diag_embed(1.0 - tan_free), lo, up, ids) + data
+    # forward-mode Jacobians keep host state (dual levels, the lock): eager
+    key = None if jac_fn is None else lm_graphs.key(
+        (residual_fn, jac_fn, manifold.blocks, options, run, nb), (x0, free_mask, lo, up, ids) + data
+    )
+    seg = lm_graphs.solve("dense", key, consts, device)
 
-    def clip_x(x):
+    def clip_x(k, x):
+        lo, up = k[3], k[4]
         if lo is not None:
             x = torch.maximum(x, lo)
         if up is not None:
             x = torch.minimum(x, up)
         return x
 
-    def residuals(x):
-        return residual_fn(x, *data)
+    def residuals(k, x):
+        return residual_fn(x, *k[6:])
 
-    def linearize(x):
+    def linearize(k, x):
         if jac_fn is not None:
             # assumes the box bounds are inactive at the iterate (Ceres'
             # interior linearization), as the reference does
-            return residuals(x), jac_fn(x, *data)
-        return tangent_jacobian(residual_fn, manifold, x, data, lo, up)
+            return residuals(k, x), jac_fn(x, *k[6:])
+        return tangent_jacobian(residual_fn, manifold, x, k[6:], k[3], k[4])
 
-    x_init = clip_x(x0)
-    r = residuals(x_init)
-    blocks = _loss_blocks(r.shape[-1], block_ids, num_blocks, device)
-    nb = num_blocks if block_ids is not None else 1
-
-    def cost_of(r):
+    def cost_of(k, r):
         if huber > 0:
-            return _robust_weights(r, blocks, nb, huber)[1]
+            return _robust_weights(r, (run, k[5]), nb, huber)[1]
         return 0.5 * torch.sum(r * r, dim=-1)
 
-    def weighted(r, jac):
+    def weighted(k, r, jac):
         if huber > 0:
-            sw = torch.sqrt(_robust_weights(r, blocks, nb, huber)[0])
+            sw = torch.sqrt(_robust_weights(r, (run, k[5]), nb, huber)[0])
             return r * sw, jac * sw[..., None]
         return r, jac
-
-    diag_free = torch.diag_embed(tan_free)
-    diag_fixed = torch.diag_embed(1.0 - tan_free)
 
     def sel(mask, a, b_):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
@@ -264,84 +275,110 @@ def make_lm_step(
     def cond(state: LMState):
         return ~state.done & (state.it < max_it)
 
+    def init_segment(k, x0):
+        x = clip_x(k, x0)
+        return x, cost_of(k, residuals(k, x))
+
+    def linearize_segment(k, x, cost, mu, nu, it, done):
+        """(grad_max, the trials' cache (x ... outer), the trials' carry
+        (t_x ... go))."""
+        tan_free, diag_fixed = k[0], k[2]
+        outer = ~done & (it < max_it)
+        r_lin, jac = linearize(k, x)
+        rw, jw = weighted(k, r_lin, jac)
+        jw = jw * tan_free[:, None, :]
+        g = torch.einsum("bmi,bm->bi", jw, rw)
+        a = jw.transpose(-1, -2) @ jw
+
+        grad_max = g.abs().amax(dim=-1)
+        gtol_hit = grad_max <= eps
+        diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
+        # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
+        # scaled system has unit diagonal, so the damping is mu * I and the
+        # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
+        # factorization stays SPD (their delta is zeroed)
+        d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
+        a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
+        x_norm = torch.linalg.norm(x, dim=-1)
+
+        accepted = torch.zeros_like(done)
+        t_term = torch.zeros_like(it)
+        active = outer & ~accepted & (t_term == 0) & (it < max_it)
+        return (grad_max, x, cost, g, d, a_s, diag, x_norm, gtol_hit, outer,
+                x, cost, mu, nu, it, accepted, t_term, active, active.any())
+
+    def trial_segment(k, x, cost, g, d, a_s, diag, x_norm, gtol_hit, outer,
+                      t_x, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, go):
+        """One damped re-solve of the cached system: the new carry, with
+        the next trial's ``active`` lanes and whether there are any."""
+        tan_free, diag_free = k[0], k[1]
+        sys = a_s + t_mu[:, None, None] * diag_free
+        delta = -d * linalg.spd_solve(sys, d * g) * tan_free
+        delta_ok = torch.isfinite(delta).all(dim=-1)
+        delta = sel(delta_ok, delta, torch.zeros_like(delta))
+
+        step_norm = torch.linalg.norm(delta, dim=-1)
+        xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+
+        x_new = clip_x(k, manifold.retract(x, delta))
+        cost_new = cost_of(k, residuals(k, x_new))
+        pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
+        rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+        accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+        ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+
+        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+        mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+        term = torch.where(
+            gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+        ).to(t_term.dtype)
+
+        t_x = sel(accept, x_new, t_x)
+        t_cost = sel(accept, cost_new, t_cost)
+        t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+        t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+        t_it = sel(active, t_it + 1, t_it)
+        accepted = accepted | accept
+        t_term = sel(active, term, t_term)
+        active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
+        return t_x, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, active.any()
+
     def step(state: LMState) -> LMState:
-        outer = cond(state)
-        with profiling.span("dense.linearize"):
-            x, cost = state.x, state.cost
-            r_lin, jac = linearize(x)
-            rw, jw = weighted(r_lin, jac)
-            jw = jw * tan_free[:, None, :]
-            g = torch.einsum("bmi,bm->bi", jw, rw)
-            a = jw.transpose(-1, -2) @ jw
+        with seg.held():
+            with profiling.span("dense.linearize"):
+                lin = seg.run(
+                    "linearize", linearize_segment, state.x, state.cost, state.mu, state.nu, state.it, state.done
+                )
+            grad_max, cache, carry = lin[0], lin[1:10], lin[10:]
+            # inner damping-retry loop on the cached linearization
+            while True:
+                with profiling.sync("dense.trial"):
+                    go = bool(carry[-1])
+                if not go:
+                    break
+                with profiling.span("dense.trial"):
+                    carry = seg.run("trial", trial_segment, *cache, *carry, update_from=len(cache))
+            outer = cache[-1]
+            t_x, t_cost, t_mu, t_nu, t_it, _, t_term = carry[:7]
+            # lanes outside the outer loop never went active: their t_* are
+            # their own state, so only the per-linearization fields need gating
+            return LMState(
+                x=seg.own(t_x), mu=seg.own(t_mu), nu=seg.own(t_nu), cost=seg.own(t_cost), it=seg.own(t_it),
+                done=torch.where(outer, t_term > 0, state.done),
+                termination=torch.where(outer, t_term, state.termination),
+                grad_max=torch.where(outer, grad_max, state.grad_max),
+                lin=state.lin + outer.to(state.lin.dtype),
+            )
 
-            grad_max = g.abs().amax(dim=-1)
-            gtol_hit = grad_max <= eps
-            diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
-            # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
-            # scaled system has unit diagonal, so the damping is mu * I and the
-            # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
-            # factorization stays SPD (their delta is zeroed)
-            d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
-            a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
-            x_norm = torch.linalg.norm(x, dim=-1)
-
-        # inner damping-retry loop on the cached linearization
-        t_x, t_cost, t_mu, t_nu, t_it = x, cost, state.mu, state.nu, state.it
-        accepted = torch.zeros_like(state.done)
-        t_term = torch.zeros_like(state.termination)
-        while True:
-            active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-            with profiling.sync("dense.trial"):
-                go = bool(active.any())
-            if not go:
-                break
-            with profiling.span("dense.trial"):
-                sys = a_s + t_mu[:, None, None] * diag_free
-                delta = -d * linalg.spd_solve(sys, d * g) * tan_free
-                delta_ok = torch.isfinite(delta).all(dim=-1)
-                delta = sel(delta_ok, delta, torch.zeros_like(delta))
-
-                step_norm = torch.linalg.norm(delta, dim=-1)
-                xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
-
-                x_new = clip_x(manifold.retract(x, delta))
-                cost_new = cost_of(residuals(x_new))
-                pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
-                rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-                accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-                ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
-
-                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-                mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-                term = torch.where(
-                    gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-                ).to(t_term.dtype)
-
-                t_x = sel(accept, x_new, t_x)
-                t_cost = sel(accept, cost_new, t_cost)
-                t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-                t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-                t_it = sel(active, t_it + 1, t_it)
-                accepted = accepted | accept
-                t_term = sel(active, term, t_term)
-
-        # lanes outside the outer loop never went active: their t_* are
-        # their own state, so only the per-linearization fields need gating
-        return LMState(
-            x=t_x, mu=t_mu, nu=t_nu, cost=t_cost, it=t_it,
-            done=torch.where(outer, t_term > 0, state.done),
-            termination=torch.where(outer, t_term, state.termination),
-            grad_max=torch.where(outer, grad_max, state.grad_max),
-            lin=state.lin + outer.to(state.lin.dtype),
-        )
-
+    with seg.held():
+        x_init, cost = (seg.own(t) for t in seg.run("init", init_segment, x0))
     it = torch.zeros((b,), dtype=torch.int64, device=device)
     init = LMState(
         x=x_init,
         mu=torch.full((b,), _MU_INIT, dtype=dtype, device=device),
         nu=torch.full((b,), 2.0, dtype=dtype, device=device),
-        cost=cost_of(r),
+        cost=cost,
         it=it,
         done=torch.zeros((b,), dtype=torch.bool, device=device),
         termination=torch.zeros_like(it),

@@ -14,7 +14,9 @@ planar_pose_batch, optimize_planar_pose, semi-DLT, the Scheimpflug
 extrinsics in each Jacobian mode and the Scheimpflug bundle) on the card
 against the CPU; a mesh of two shards on one card against the unsharded
 call (and K1 launched once per shard), and the "mixed" precision's float32
-phase on the card.
+phase on the card; the dense LM's CUDA graphs against its eager
+solves (bundle_batch in one phase and two, handeye_batch, lm_cost_trace)
+and the solves that stay eager.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -39,12 +41,15 @@ from calibration_tpu_torch.ops import projection_residuals as pr
 from calibration_tpu_torch.ops import intrinsics_linear, ransac, se3
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
-from calibration_tpu_torch.optim import lm_schur
+from calibration_tpu_torch.optim import blocks
+from calibration_tpu_torch.optim import bundle as bundle_mod
+from calibration_tpu_torch.optim import lm, lm_graphs, lm_schur
+from calibration_tpu_torch.optim.manifold import ProductManifold, euclid
 from calibration_tpu_torch.optim import optimize_bundle_device, optimize_extrinsics_device, optimize_planar_pose
 from calibration_tpu_torch.optim import optimize_intrinsics_semidlt, optimize_intrinsics_semidlt_device
 from calibration_tpu_torch.parallel import bundle_batch, extrinsics_batch, handeye_batch, homography_batch
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch
-from calibration_tpu_torch.parallel import linescan_ransac_batch, make_mesh, planar_pose_batch
+from calibration_tpu_torch.parallel import batched, linescan_ransac_batch, make_mesh, planar_pose_batch
 from calibration_tpu_torch.utils import profiling
 from torch_helpers import assert_reports_match, k1_launches, ransac_rounds
 
@@ -633,3 +638,160 @@ def test_k1_launches_fall_inside_k1_rms_spans(cuda_device, tmp_path):
     for e in launches:
         start, end = float(e["ts"]), float(e["ts"]) + float(e["dur"])
         assert any(a - 50.0 <= start and end <= b + 50.0 for a, b in spans), (start, end, spans)
+
+
+def _graph_counts():
+    c = profiling.counters()
+    return {k: c.get(f"dense.graph.{k}", 0) for k in ("captures", "replays", "eager")}
+
+
+def _thrice(solve):
+    """``solve()`` three times from empty graph caches: eagerly (a key's
+    first sighting), capturing (its second), replaying; returns the three
+    outputs and the graph counters' steps of each call."""
+    lm_graphs.clear()
+    outs, steps = [], []
+    for _ in range(3):
+        before = _graph_counts()
+        outs.append(solve())
+        torch.cuda.synchronize()
+        after = _graph_counts()
+        steps.append({k: after[k] - before[k] for k in after})
+    return outs, steps
+
+
+def _same_trajectory(graphed, eager):
+    """iterations, linearizations and termination equal; x, cost and the
+    initial cost to 1e-12 relative (x to its lane's largest entry)."""
+    for name in ("iterations", "linearizations", "termination", "success"):
+        assert torch.equal(getattr(graphed, name), getattr(eager, name)), name
+    for name in ("cost", "initial_cost"):
+        a, b = getattr(graphed, name), getattr(eager, name)
+        assert float(((a - b).abs() / b.abs().clamp(min=1e-300)).max()) <= 1e-12, name
+    assert bool(((graphed.x - eager.x).abs().amax(-1) <= 1e-12 * eager.x.abs().amax(-1)).all())
+
+
+def _captured_then_replayed(steps, keys):
+    """The first call eager, the second capturing each key's three
+    segments (initial cost, linearization, trial) and replaying the rest,
+    the third replaying every segment the first ran."""
+    eager = steps[0]["eager"]
+    assert steps[0] == {"captures": 0, "replays": 0, "eager": eager} and eager > 3 * keys
+    assert steps[1] == {"captures": 3 * keys, "replays": eager - 3 * keys, "eager": 0}
+    assert steps[2] == {"captures": 0, "replays": eager, "eager": 0}
+
+
+@pytest.mark.parametrize("two_phase", [False, True], ids=["one_phase", "two_phase"])
+def test_graphed_bundle_batch_equals_eager(cuda_device, monkeypatch, two_phase):
+    """16 lanes of the config-5 set, every other lane's hand-eye seed
+    perturbed by 0.26 rad more: those take 5 trials, the rest 4. With a
+    first-phase cap of 4 the second phase holds 8 of the 16 lanes, a key
+    of its own."""
+    p = chip_smoke.bundle_problems(16)
+    p["g0"] = p["g0"].copy()
+    p["g0"][::2] = p["g0"][::2] @ chip_smoke._pose([0.15, -0.15, 0.15], [0.05, 0.0375, -0.05])
+    monkeypatch.setattr(batched, "BUNDLE_PHASE_CAP", 4)
+    opts = BundleOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
+    args = chip_smoke.bundle_args(p, cuda_device)
+    rephased = profiling.counters().get("dense.rephased_lanes", 0)
+    outs, steps = _thrice(lambda: bundle_batch(*args, opts=opts, two_phase=two_phase))
+    assert profiling.counters().get("dense.rephased_lanes", 0) - rephased == (24 if two_phase else 0)
+    assert bool(outs[0][0].success.all())
+    for graphed in outs[1:]:
+        _same_trajectory(graphed[0], outs[0][0])
+        assert float((graphed[2] - outs[0][2]).abs().max()) <= 1e-12
+    _captured_then_replayed(steps, keys=2 if two_phase else 1)
+
+
+@pytest.mark.parametrize("rot_residual", ["quat", "log"])
+def test_graphed_handeye_batch_equals_eager(cuda_device, rot_residual):
+    _, bg, ct = chip_smoke.handeye_problems(16)
+    ct = ct.copy()
+    ct[..., :3, 3] += np.random.default_rng(1).normal(0, 2e-3, ct[..., :3, 3].shape)
+    bg, ct = torch.as_tensor(bg, device=cuda_device), torch.as_tensor(ct, device=cuda_device)
+    opts = OptimOptions(max_iterations=50)
+    outs, steps = _thrice(lambda: handeye_batch(bg, ct, options=opts, rot_residual=rot_residual))
+    assert bool(outs[0][0].success.all())
+    for graphed in outs[1:]:
+        _same_trajectory(graphed[0], outs[0][0])
+        assert float((graphed[1] - outs[0][1]).abs().max()) <= 1e-12
+    _captured_then_replayed(steps, keys=1)
+
+
+def test_graphed_lm_cost_trace_equals_eager(cuda_device):
+    """``lm_cost_trace`` keeps every step's state: its whole cost curve,
+    graphed, is the eager one, and its output is ``lm_core``'s."""
+    p = chip_smoke.bundle_problems(16)
+    obj, uv, bg, cam_idx, intrs, g0, b0 = chip_smoke.bundle_args(p, cuda_device)
+    mask = torch.ones(obj.shape[:-1], dtype=obj.dtype, device=cuda_device)
+    gq, gt = blocks.poses_to_quat_tran(g0)
+    x0 = torch.cat([intrs.reshape(16, -1), gq.reshape(16, -1), gt.reshape(16, -1),
+                    se3.rotmat_to_quat(se3.rot(b0)), se3.tra(b0)], dim=-1)
+    pc, c, o, n = 10, 1, obj.shape[1], obj.shape[2]
+    free = torch.ones(x0.shape[-1], dtype=torch.bool, device=cuda_device)
+    free[:pc] = False
+
+    def res(x, *d):
+        return bundle_mod._residual(x, *d, pc, c)
+
+    def jac(x, *d):
+        return bundle_mod._residual_jac_pinhole(x, *d, pc, c)
+
+    kw = dict(data=(obj, uv, mask, bg, cam_idx), options=OptimOptions(max_iterations=12), free_mask=free,
+              block_ids=np.repeat(np.arange(o), 2 * n), num_blocks=o, jac_fn=jac)
+    outs, steps = _thrice(lambda: profiling.lm_cost_trace(res, x0, bundle_mod.make_manifold(pc, c), **kw))
+    for out, costs in outs[1:]:
+        _same_trajectory(out, outs[0][0])
+        assert float(((costs - outs[0][1]).abs() / outs[0][1].abs()).max()) <= 1e-12
+    assert bool((outs[0][1][:, :-1] >= outs[0][1][:, 1:]).all())
+    _same_trajectory(outs[2][0], lm.lm_core(res, x0, bundle_mod.make_manifold(pc, c), **kw))
+    _captured_then_replayed(steps, keys=1)
+
+
+def _line_problem(dev, b=8):
+    manifold = ProductManifold([euclid(2)])
+    target = torch.arange(2 * b, dtype=torch.float64, device=dev).reshape(b, 2)
+
+    def jac(x, t):
+        return torch.eye(2, dtype=x.dtype, device=x.device).expand(x.shape[0], 2, 2)
+
+    return manifold, target, jac
+
+
+def test_a_residual_over_a_tensor_runs_eagerly(cuda_device):
+    manifold, target, jac = _line_problem(cuda_device)
+    scale = torch.full((2,), 0.5, dtype=torch.float64, device=cuda_device)
+
+    def res(x, t):
+        return (x - t) * scale
+
+    def jac_scaled(x, t):
+        return jac(x, t) * 0.5
+
+    outs, steps = _thrice(lambda: lm.lm_core(res, torch.zeros_like(target), manifold, data=(target,),
+                                              jac_fn=jac_scaled))
+    assert all(s["captures"] == s["replays"] == 0 and s["eager"] > 0 for s in steps)
+    assert bool(outs[2].success.all())
+
+
+def test_a_segment_that_cannot_be_captured_runs_eagerly_from_then_on(cuda_device):
+    """A residual that reads a device value on the host: its capture fails,
+    the solve goes on eagerly with the eager result, and the key is never
+    captured again; other keys still capture."""
+    manifold, target, jac = _line_problem(cuda_device)
+
+    def res(x, t):
+        return (x - t) * float(t.abs().max() >= 0)
+
+    outs, steps = _thrice(lambda: lm.lm_core(res, torch.zeros_like(target), manifold, data=(target,),
+                                              jac_fn=jac))
+    for out in outs[1:]:
+        _same_trajectory(out, outs[0])
+    assert all(s["captures"] == s["replays"] == 0 and s["eager"] > 0 for s in steps)
+    p = chip_smoke.bundle_problems(4)
+    args = chip_smoke.bundle_args(p, cuda_device)
+    opts = BundleOptions(core=OptimOptions(max_iterations=50, compute_covariance=False))
+    before = _graph_counts()
+    for _ in range(2):
+        bundle_batch(*args, opts=opts, two_phase=False)
+    assert _graph_counts()["captures"] - before["captures"] == 3
