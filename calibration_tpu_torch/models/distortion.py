@@ -18,15 +18,6 @@ MIN_FIT_OBSERVATIONS = 8
 UNDISTORT_ITERS = 5  # the reference's fixed schedule
 
 
-def _spd_solve(a, b):
-    """Cholesky solve of (..., n, n) SPD systems against (..., n); a lane
-    that is not SPD gives NaN, as the reference's. (A local copy of
-    ``ops.linalg.spd_solve``: ``ops`` imports ``models``.)"""
-    low, info = torch.linalg.cholesky_ex(a)
-    low = torch.where((info != 0)[..., None, None], torch.nan, low)
-    return torch.cholesky_solve(b[..., None], low)[..., 0]
-
-
 def apply_distortion(xy, coeffs):
     """Forward Brown-Conrady distortion of normalized coords.
 
@@ -115,6 +106,8 @@ def fit_distortion_full(
       ``A @ coeffs - b`` with masked rows zero; ok is False with fewer than
       8 valid observations or a non-finite solution.
     """
+    from ..ops import linalg  # imported when called: ``ops`` imports ``models``
+
     n = xy.shape[-2]
     d = num_radial + 2
     a, b = _build_design(xy, uv, kmtx, num_radial)
@@ -141,7 +134,7 @@ def fit_distortion_full(
     # pinned rows/cols become identity rows: their delta solves to exactly 0
     eye = torch.eye(d, dtype=dtype, device=device)
     sys = ata * (free[..., :, None] * free[..., None, :]) + torch.diag_embed(1.0 - free) + ridge * eye
-    alpha = torch.where(fixed_mask, fixed_values, _spd_solve(sys, atb * free))
+    alpha = torch.where(fixed_mask, fixed_values, linalg.spd_solve(sys, atb * free))
     residuals = torch.einsum("...ij,...j->...i", a, alpha) - b
     ok = (count >= MIN_FIT_OBSERVATIONS) & torch.isfinite(alpha).all(dim=-1)
     return alpha, residuals, ok

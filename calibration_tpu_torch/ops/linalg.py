@@ -54,28 +54,34 @@ def cholesky(a):
     return torch.where((info != 0)[..., None, None], torch.nan, low)
 
 
-def spd_solve(a, b):
-    """Solve SPD systems via Cholesky. a: (..., n, n); b: (..., n) or
-    (..., n, m). Non-SPD lanes give NaN.
+def cholesky_apply(low, rhs):
+    """(L L^T)^-1 rhs for lower Cholesky factors low (..., n, n) and
+    rhs (..., n, m), by two triangular solves, as LAPACK's potrs does (on
+    the CPU the result is ``torch.cholesky_solve(rhs, low)``'s, bit for
+    bit). A NaN factor (a lane that is not SPD) gives NaN.
 
-    The factor is applied by two triangular solves, as LAPACK's potrs does
-    (on the CPU the result is ``cholesky_solve``'s, bit for bit). On CUDA a
-    batched ``cholesky_solve`` runs MAGMA, which allocates and frees device
-    memory on every call: an implicit synchronisation, and a call that a
-    CUDA graph cannot capture. The triangular solves run cuBLAS's batched
-    trsm, which does neither."""
-    low = cholesky(a)
-    rhs = b if b.ndim == a.ndim else b[..., None]
+    On CUDA a batched ``cholesky_solve`` runs MAGMA, which allocates and
+    frees device memory on every call: an implicit synchronisation, and a
+    call that a CUDA graph cannot capture. The triangular solves run
+    cuBLAS's batched trsm, which does neither."""
     y = torch.linalg.solve_triangular(low, rhs, upper=False)
-    x = torch.linalg.solve_triangular(low.mT, y, upper=True)
-    return x if b.ndim == a.ndim else x[..., 0]
+    return torch.linalg.solve_triangular(low.mT, y, upper=True)
+
+
+def spd_solve(a, b):
+    """Solve SPD systems via Cholesky (``cholesky_apply``). a: (..., n, n);
+    b: (..., n) or (..., n, m). Non-SPD lanes give NaN."""
+    if b.ndim == a.ndim:
+        return cholesky_apply(cholesky(a), b)
+    return cholesky_apply(cholesky(a), b[..., None])[..., 0]
 
 
 def spd_inverse(a):
-    """Inverse of SPD matrices via Cholesky. Non-SPD lanes give NaN.
-    (A solve against I: ``cholesky_inverse`` raises on a zero pivot.)"""
+    """Inverse of SPD matrices via Cholesky: the factor applied to I
+    (``cholesky_apply``). Non-SPD lanes give NaN. (``cholesky_inverse``
+    raises on a zero pivot.)"""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
-    return torch.cholesky_solve(eye, cholesky(a))
+    return cholesky_apply(cholesky(a), eye)
 
 
 def solve_llsq(a, b):

@@ -31,7 +31,7 @@ import torch.autograd.forward_ad as fwAD
 from ..models import pinhole
 from ..models.registry import PINHOLE, SPECS
 from ..ops import se3
-from . import blocks, lm, lm_schur
+from . import blocks, lm, lm_graphs, lm_schur
 from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported
 from .manifold import ProductManifold, euclid, quat
 
@@ -187,8 +187,10 @@ def _residual_fns(pc, c, model=PINHOLE, jac_mode="grouped"):
     res = lambda xg, q, t, o, u, m: _view_residual(xg, q, t, o, u, m, pc, c, model)  # noqa: E731
     if model.name == PINHOLE.name:
         jac = lambda xg, q, t, o, u, m: _view_residual_jac_pinhole(xg, q, t, o, u, m, pc, c)  # noqa: E731
-    elif jac_mode == "grouped":
-        jac = lambda xg, q, t, o, u, m: _view_residual_jac_grouped(xg, q, t, o, u, m, pc, c, model)  # noqa: E731
+    elif jac_mode == "grouped":  # forward mode: host state, never graphed
+        jac = lm_graphs.eager(
+            lambda xg, q, t, o, u, m: _view_residual_jac_grouped(xg, q, t, o, u, m, pc, c, model)
+        )
     else:
         jac = lm_schur.view_jacobian_fn(res, g_manifold=global_manifold(pc, c))
     return res, jac

@@ -27,7 +27,7 @@ import torch
 from ..models.camera_matrix import CalibrationBounds
 from ..models.registry import PINHOLE, SCHEIMPFLUG
 from ..ops import se3
-from . import blocks, lm, lm_schur
+from . import blocks, lm, lm_graphs, lm_schur
 from .core import OptimOptions, OptimResult, TerminationType, brief_report, check_ported, check_precision
 from .manifold import ProductManifold, euclid, quat
 
@@ -98,6 +98,13 @@ def _view_functions(model):
     autodiff for any other model."""
     res = functools.partial(_view_residual, model=model)
     return res, ANALYTIC_VIEW_JACOBIANS.get(model.name) or lm_schur.view_jacobian_fn(res)
+
+
+def schur_graphed(model, device) -> bool:
+    """Whether the Schur solves of ``model`` on ``device`` replay CUDA
+    graphs (``optim/lm_graphs``): on CUDA, with a Jacobian that a graph
+    key follows (forward mode is never graphed)."""
+    return torch.device(device).type == "cuda" and lm_graphs.key(_view_functions(model), ()) is not None
 
 
 def _skew_z0(pts):

@@ -17,6 +17,18 @@ cost of one launch instead of one per kernel.
   and its next sighting counts as a first. A key whose capture fails (a
   segment that reads a device value on the host, or copies from the
   host) runs eagerly from then on.
+- **What a key follows.** A function by its code, the values in its
+  closure cells, its defaults and keyword defaults; a
+  ``functools.partial`` by its function, its arguments and its keywords;
+  a frozen dataclass field by field; a ``torch.dtype`` by its name. A
+  closed-over tensor, list, dict or other object gives no key (a tensor's
+  address may be reused once it is freed), and so does a function marked
+  ``eager`` (one that keeps host state, as a forward-mode Jacobian keeps
+  its dual levels and their lock). A key does not follow the module
+  globals a function reads: a replay keeps what a global held at capture,
+  where an eager run reads it anew. So a keyed function may read module
+  functions and constants, never a module-level tensor or any global
+  that is rebound.
 - **Static buffers.** A graph reads only buffers of its own key: the
   solve's constants, copied in when a solve holds the key
   (``Solve.held``), and its arguments, copied in before each replay
@@ -35,6 +47,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import threading
 import types
 from typing import Callable, Optional
@@ -47,7 +60,7 @@ from ..utils import profiling
 # buckets, a phased solve's phases), and each key holds its graphs' memory
 _CACHE_SIZE = 8
 # nesting of functions, tuples and dataclasses that a key follows
-_MAX_DEPTH = 8
+_MAX_DEPTH = 12
 
 _SCALARS = (int, float, bool, str, type(None))
 
@@ -56,16 +69,34 @@ class _Unkeyable(Exception):
     pass
 
 
+_EAGER = "_lm_graphs_eager"
+
+
+def eager(fn: Callable) -> Callable:
+    """Mark ``fn`` as a function that keeps host state across a segment (a
+    forward-mode Jacobian): a key over it is None, so its solves run
+    eagerly. Returns ``fn``."""
+    setattr(fn, _EAGER, True)
+    return fn
+
+
 def _value_key(v, depth: int = 0):
     if depth > _MAX_DEPTH:
         raise _Unkeyable
     if isinstance(v, _SCALARS):
         return (type(v), v)
+    if isinstance(v, torch.dtype):
+        return (torch.dtype, str(v))
     if isinstance(v, tuple):
         return (type(v), tuple(_value_key(e, depth + 1) for e in v))
     if dataclasses.is_dataclass(v) and not isinstance(v, type) and v.__dataclass_params__.frozen:
         return (type(v), tuple(_value_key(getattr(v, f.name), depth + 1) for f in dataclasses.fields(v)))
+    if type(v) is functools.partial:
+        kw = tuple(sorted(v.keywords.items()))
+        return (functools.partial, _value_key((v.func, v.args, kw), depth + 1))
     if isinstance(v, types.FunctionType):
+        if getattr(v, _EAGER, False):
+            raise _Unkeyable
         try:
             cells = tuple(c.cell_contents for c in v.__closure__ or ())
         except ValueError:  # an empty cell
@@ -85,11 +116,11 @@ def _tensor_key(t):
 
 def key(values: tuple, tensors: tuple):
     """A solve's key, or None where it has none: ``values`` by value
-    (ints, floats, bools, strings, None, frozen dataclasses, functions by
-    their code and the values they close over, and tuples of these; a
-    closed-over tensor makes the solve unkeyable, since its address may be
-    reused once it is freed), ``tensors`` (tensors or None) by shape and
-    dtype."""
+    (ints, floats, bools, strings, None, dtypes, frozen dataclasses,
+    functions and partials by what the module docstring says a key
+    follows, and tuples of these; a closed-over tensor or an ``eager``
+    function makes the solve unkeyable), ``tensors`` (tensors or None) by
+    shape and dtype."""
     try:
         return (_value_key(values), tuple(_tensor_key(t) for t in tensors))
     except _Unkeyable:

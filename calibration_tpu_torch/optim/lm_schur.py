@@ -21,6 +21,12 @@ the whole batch with per-lane masks: a lane that is done keeps every field,
 its ``it`` and ``lin`` counters included, and inner trials advance only the
 lanes still active in the outer loop. The host reads one flag per trial to
 decide whether any lane is still active.
+
+The device work falls in three segments of fixed shapes, as in
+``lm.make_lm_step``: the initial cost, a linearization, a trial. With an
+analytic ``jac_fn`` on CUDA and a key for the solve (``lm_graphs``, prefix
+``schur``), each is a CUDA graph from the key's second solve on; the
+host's flag reads between them stay.
 """
 
 from __future__ import annotations
@@ -33,8 +39,13 @@ import torch.autograd.forward_ad as fwAD
 
 from ..ops import linalg, se3
 from ..utils import profiling
+from . import lm_graphs
 from .core import OptimOptions
 from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput, dual_level
+
+
+# the trial's cache, the first outputs of a linearization (xg ... outer)
+_CACHE_LEN = 18
 
 
 class SchurOutput(NamedTuple):
@@ -73,7 +84,9 @@ def view_jacobian_fn(residual_fn: Callable, *, g_manifold=None) -> Callable:
     retracted residual at zero tangent, columns [global tangent (pg) |
     omega (3) | t (3)], as the reference's ``vmap(jacfwd)`` of its
     ``res_local``. The global block retracts through ``g_manifold`` (a
-    rig's camera quaternions), or by addition when it is None.
+    rig's camera quaternions), or by addition when it is None. It keeps
+    host state (a dual level and its lock), so it is marked
+    ``lm_graphs.eager``: its solves are never graphed.
 
     Each view's residual depends only on its lane's global block and its
     own pose, so one forward sweep per tangent column over the whole
@@ -108,7 +121,7 @@ def view_jacobian_fn(residual_fn: Callable, *, g_manifold=None) -> Callable:
             jac = fwAD.unpack_dual(r).tangent  # (cols * B, V, m)
         return jac.reshape((cols, b) + jac.shape[1:]).permute(1, 2, 3, 0)  # (B, V, m, pg + 6)
 
-    return jac_fn
+    return lm_graphs.eager(jac_fn)
 
 
 def full_jacobian(residual_view_fn, xg, quats, trans, view_data, g_manifold=None, jac_view_fn=None):
@@ -310,26 +323,150 @@ def lm_core_schur(
         gmask = g_free.to(dtype).expand(b, pg)
     vmask = ones(b, v) if view_valid is None else view_valid.to(dtype)
     vmask6 = vmask[..., None].expand(b, v, 6)
+    lo = None if lower_g is None else lower_g.to(dtype)
+    view_data = tuple(view_data)
+    # what every segment reads besides its arguments, as k: (gmask, vmask6,
+    # diag(gmask), diag(vmask6), diag(1 - gmask), diag(1 - vmask6), lo,
+    # *view_data)
+    consts = (gmask, vmask6, torch.diag_embed(gmask), torch.diag_embed(vmask6), torch.diag_embed(1.0 - gmask),
+              torch.diag_embed(1.0 - vmask6), lo) + view_data
+    # forward-mode Jacobians keep host state (dual levels, the lock): they
+    # are marked ``lm_graphs.eager`` and get no key
+    key = lm_graphs.key(
+        (residual_fn, jac_fn, options, None if g_manifold is None else g_manifold.blocks, blocks_per_view,
+         jac_dtype),
+        (xg0, quats0, trans0, g_free, view_valid, lower_g) + view_data,
+    )
+    seg = lm_graphs.solve("schur", key, consts, device)
+    gdt = dtype if jac_dtype is None else jac_dtype
 
-    def clip_g(xg):
-        return xg if lower_g is None else torch.maximum(xg, lower_g.to(dtype))
+    def clip_g(k, xg):
+        return xg if k[6] is None else torch.maximum(xg, k[6])
 
     def g_retract(xg, dg):
         return xg + dg if g_manifold is None else g_manifold.retract(xg, dg)
 
-    def residuals(xg, quats, trans):
-        return residual_fn(xg, quats, trans, *view_data)
+    def residuals(k, xg, quats, trans):
+        return residual_fn(xg, quats, trans, *k[7:])
 
     def weights(r):
         return _huber(r, huber, blocks_per_view)
 
-    gdt = dtype if jac_dtype is None else jac_dtype
-    view_data_j = tuple(d.to(gdt) if d.is_floating_point() else d for d in view_data)
+    def sel(mask, a, b_):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
 
-    xg = clip_g(xg0)
+    def init_segment(k, xg0, quats0, trans0):
+        xg = clip_g(k, xg0)
+        r = residuals(k, xg, quats0, trans0)
+        return xg, r, weights(r)[1]
+
+    def linearize_segment(k, xg, quats, trans, r, cost, mu, nu, it, done):
+        """One LINEARIZATION at the current iterate: the trials' cache
+        (xg ... outer) and their carry (t_xg ... go). The Jacobian and its
+        grams in gdt, the system in the state's dtype."""
+        gmask, vmask6, diag_gfixed, diag_vfixed = k[0], k[1], k[4], k[5]
+        outer = ~done & (it < max_it)
+        view_data_j = tuple(d.to(gdt) if d.is_floating_point() else d for d in k[7:])
+        jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
+        w, _ = weights(r)
+        sw = torch.sqrt(w)
+        rw = (r * sw).to(gdt)
+        jw = jac * sw[..., None].to(gdt)
+        a_blk = jw[..., :pg] * gmask[:, None, None, :].to(gdt)
+        b_blk = jw[..., pg:] * vmask6[:, :, None, :].to(gdt)
+        u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk).to(dtype)
+        wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk).to(dtype)
+        vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk).to(dtype)
+        gu = torch.einsum("bvmi,bvm->bi", a_blk, rw).to(dtype)
+        gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw).to(dtype)
+
+        grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
+        gtol_hit = grad_max <= eps
+
+        diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
+        diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
+        dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
+        dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
+
+        # Jacobi-scaled damped system; frozen dims get a unit diagonal so
+        # every factorization stays SPD (their delta is zeroed afterwards)
+        u_s = dg[:, :, None] * u * dg[:, None, :] + diag_gfixed
+        w_s = dg[:, None, :, None] * wmat * dv[:, :, None, :]
+        v_s = dv[..., :, None] * vb * dv[..., None, :] + diag_vfixed
+        gu_s = dg * gu
+        gv_s = dv * gv
+        # over the ambient blocks, a rig's camera quaternions included
+        x_norm = torch.sqrt(
+            torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
+        )
+
+        accepted = torch.zeros_like(done)
+        t_term = torch.zeros_like(it)
+        active = outer & ~accepted & (t_term == 0) & (it < max_it)
+        return (xg, quats, trans, cost, u_s, w_s, v_s, gu_s, gv_s, gu, gv, diag_u, diag_v, dg, dv, gtol_hit, x_norm,
+                outer, xg, quats, trans, r, cost, mu, nu, it, accepted, t_term, active, active.any())
+
+    def trial_segment(k, xg, quats, trans, cost, u_s, w_s, v_s, gu_s, gv_s, gu, gv, diag_u, diag_v, dg, dv,
+                      gtol_hit, x_norm, outer,
+                      t_xg, t_quats, t_trans, t_r, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, go):
+        """One damped Schur re-solve of the cached linearization: the new
+        carry, with the next trial's ``active`` lanes and whether there
+        are any."""
+        gmask, vmask6, diag_gmask, diag_vmask6 = k[:4]
+        u_mu = u_s + t_mu[:, None, None] * diag_gmask
+        v_mu = v_s + t_mu[:, None, None, None] * diag_vmask6
+        v_inv = linalg.spd_inverse(v_mu)  # (B, V, 6, 6)
+        wvinv = w_s @ v_inv  # (B, V, pg, 6)
+        s_mat = u_mu - torch.einsum("bvik,bvjk->bij", wvinv, w_s)
+        rhs = -(gu_s - torch.einsum("bvik,bvk->bi", wvinv, gv_s))
+        dg_t = linalg.spd_solve(s_mat, rhs)
+        dv_t = -torch.einsum("bvij,bvj->bvi", v_inv, gv_s + torch.einsum("bvji,bj->bvi", w_s, dg_t))
+
+        delta_g = dg * dg_t * gmask
+        delta_v = dv * dv_t * vmask6
+        delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
+        delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
+        delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
+
+        step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
+        xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
+
+        xg_new = clip_g(k, g_retract(xg, delta_g))
+        q_new, tr_new = _retract_views(quats, trans, delta_v)
+        r_new = residuals(k, xg_new, q_new, tr_new)
+        _, cost_new = weights(r_new)
+
+        pred = 0.5 * (
+            torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
+            + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
+        )
+        rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+        accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+        ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+
+        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
+        mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
+        term = torch.where(
+            gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+        ).to(t_term.dtype)
+
+        t_xg = sel(accept, xg_new, t_xg)
+        t_quats = sel(accept, q_new, t_quats)
+        t_trans = sel(accept, tr_new, t_trans)
+        t_r = sel(accept, r_new, t_r)
+        t_cost = sel(accept, cost_new, t_cost)
+        t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
+        t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
+        t_it = sel(active, t_it + 1, t_it)
+        accepted = accepted | accept
+        t_term = sel(active, term, t_term)
+        active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
+        return t_xg, t_quats, t_trans, t_r, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, active.any()
+
+    with seg.held():
+        xg, r, cost = (seg.own(t) for t in seg.run("init", init_segment, xg0, quats0, trans0))
     quats, trans = quats0, trans0
-    r = residuals(xg, quats, trans)
-    _, cost = weights(r)
     cost0 = cost
     mu = torch.full((b,), _MU_INIT, dtype=dtype, device=device)
     nu = torch.full((b,), 2.0, dtype=dtype, device=device)
@@ -338,122 +475,30 @@ def lm_core_schur(
     termination = torch.zeros_like(it)
     done = torch.zeros((b,), dtype=torch.bool, device=device)
 
-    def sel(mask, a, b_):
-        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
-
     while True:
         outer = ~done & (it < max_it)
         with profiling.sync("schur.outer"):
             go = bool(outer.any())
         if not go:
             break
-        with profiling.span("schur.linearize"):
-            # one LINEARIZATION at the current iterate; the Jacobian and its
-            # grams in gdt, the system in the state's dtype
-            jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
-            w, _ = weights(r)
-            sw = torch.sqrt(w)
-            rw = (r * sw).to(gdt)
-            jw = jac * sw[..., None].to(gdt)
-            a_blk = jw[..., :pg] * gmask[:, None, None, :].to(gdt)
-            b_blk = jw[..., pg:] * vmask6[:, :, None, :].to(gdt)
-            u = torch.einsum("bvmi,bvmj->bij", a_blk, a_blk).to(dtype)
-            wmat = torch.einsum("bvmi,bvmj->bvij", a_blk, b_blk).to(dtype)
-            vb = torch.einsum("bvmi,bvmj->bvij", b_blk, b_blk).to(dtype)
-            gu = torch.einsum("bvmi,bvm->bi", a_blk, rw).to(dtype)
-            gv = torch.einsum("bvmi,bvm->bvi", b_blk, rw).to(dtype)
-
-            grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
-            gtol_hit = grad_max <= eps
-
-            diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
-            diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
-            dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
-            dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
-
-            # Jacobi-scaled damped system; frozen dims get a unit diagonal so
-            # every factorization stays SPD (their delta is zeroed afterwards)
-            u_s = dg[:, :, None] * u * dg[:, None, :] + torch.diag_embed(1.0 - gmask)
-            w_s = dg[:, None, :, None] * wmat * dv[:, :, None, :]
-            v_s = dv[..., :, None] * vb * dv[..., None, :] + torch.diag_embed(1.0 - vmask6)
-            gu_s = dg * gu
-            gv_s = dv * gv
-            diag_gmask = torch.diag_embed(gmask)
-            diag_vmask6 = torch.diag_embed(vmask6)
-            # over the ambient blocks, a rig's camera quaternions included
-            x_norm = torch.sqrt(
-                torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
-            )
-
-        # inner damping-retry loop on the cached linearization
-        t_xg, t_quats, t_trans, t_r, t_cost = xg, quats, trans, r, cost
-        t_mu, t_nu, t_it = mu, nu, it
-        accepted = torch.zeros_like(done)
-        t_term = torch.zeros_like(termination)
-        while True:
-            active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-            with profiling.sync("schur.trial"):
-                go = bool(active.any())
-            if not go:
-                break
-            with profiling.span("schur.trial"):
-                u_mu = u_s + t_mu[:, None, None] * diag_gmask
-                v_mu = v_s + t_mu[:, None, None, None] * diag_vmask6
-                v_inv = linalg.spd_inverse(v_mu)  # (B, V, 6, 6)
-                wvinv = w_s @ v_inv  # (B, V, pg, 6)
-                s_mat = u_mu - torch.einsum("bvik,bvjk->bij", wvinv, w_s)
-                rhs = -(gu_s - torch.einsum("bvik,bvk->bi", wvinv, gv_s))
-                dg_t = linalg.spd_solve(s_mat, rhs)
-                dv_t = -torch.einsum(
-                    "bvij,bvj->bvi", v_inv, gv_s + torch.einsum("bvji,bj->bvi", w_s, dg_t)
-                )
-
-                delta_g = dg * dg_t * gmask
-                delta_v = dv * dv_t * vmask6
-                delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
-                delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
-                delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
-
-                step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
-                xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
-
-                xg_new = clip_g(g_retract(xg, delta_g))
-                q_new, tr_new = _retract_views(quats, trans, delta_v)
-                r_new = residuals(xg_new, q_new, tr_new)
-                _, cost_new = weights(r_new)
-
-                pred = 0.5 * (
-                    torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
-                    + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
-                )
-                rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-                accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-                ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
-
-                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-                mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-                term = torch.where(
-                    gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-                ).to(termination.dtype)
-
-                t_xg = sel(accept, xg_new, t_xg)
-                t_quats = sel(accept, q_new, t_quats)
-                t_trans = sel(accept, tr_new, t_trans)
-                t_r = sel(accept, r_new, t_r)
-                t_cost = sel(accept, cost_new, t_cost)
-                t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-                t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-                t_it = sel(active, t_it + 1, t_it)
-                accepted = accepted | accept
-                t_term = sel(active, term, t_term)
-
-        # lanes outside the outer loop never went active: their t_* are
-        # their own state, so only the per-linearization fields need gating
-        xg, quats, trans, r, cost = t_xg, t_quats, t_trans, t_r, t_cost
-        mu, nu, it = t_mu, t_nu, t_it
-        done = torch.where(outer, t_term > 0, done)
-        termination = torch.where(outer, t_term, termination)
+        with seg.held():
+            with profiling.span("schur.linearize"):
+                out = seg.run("linearize", linearize_segment, xg, quats, trans, r, cost, mu, nu, it, done)
+            cache, carry = out[:_CACHE_LEN], out[_CACHE_LEN:]
+            # inner damping-retry loop on the cached linearization
+            while True:
+                with profiling.sync("schur.trial"):
+                    go = bool(carry[-1])
+                if not go:
+                    break
+                with profiling.span("schur.trial"):
+                    carry = seg.run("trial", trial_segment, *cache, *carry, update_from=_CACHE_LEN)
+            # lanes outside the outer loop never went active: their t_* are
+            # their own state, so only the per-linearization fields need gating
+            xg, quats, trans, r, cost, mu, nu, it = (seg.own(t) for t in carry[:8])
+            t_term = carry[9]
+            done = torch.where(outer, t_term > 0, done)
+            termination = torch.where(outer, t_term, termination)
         lin = lin + outer.to(lin.dtype)
 
     return SchurOutput(

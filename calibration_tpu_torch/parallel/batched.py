@@ -48,6 +48,7 @@ from ..optim.intrinsics import (
     IntrinsicsOptimOptions,
     intrinsics_covariance_device,
     optimize_intrinsics_device,
+    schur_graphed,
 )
 from ..optim.lm import LMOutput
 from ..optim.planarpose import optimize_planar_pose_device
@@ -100,6 +101,12 @@ BUNDLE_PHASE_CAP = 5
 # lowest. (The reference's TPU-tuned caps are 12 and 30.)
 SCHEIMPFLUG_PHASE_CAP_FIXED = 12
 SCHEIMPFLUG_PHASE_CAP_FREE = 10
+
+
+# A padded later phase of ``_phased_lm`` runs at a power of two of lanes
+# from this one up (the intrinsics fleet's graphed Schur solve: 41-46 of
+# 256 lanes reach its phase B, which runs at 64).
+PAD_LANES_MIN = 16
 
 
 def _maybe_shard(args, mesh):
@@ -224,7 +231,17 @@ def _merge_phase(lm_a: LMOutput, sol_a, out_b, idx):
     )
 
 
-def _phased_lm(solve, data_args, init_sol, schedule, layer):
+def _padded_lanes(n: int, full: int) -> int:
+    """The lane count a padded later phase runs ``n`` lanes at: the next
+    power of two from PAD_LANES_MIN, at most ``full`` (the first phase's
+    batch)."""
+    lanes = PAD_LANES_MIN
+    while lanes < n:
+        lanes *= 2
+    return min(lanes, full)
+
+
+def _phased_lm(solve, data_args, init_sol, schedule, layer, pad=False):
     """Phased compacted-batch LM.
 
     ``solve(iters, *data_args, *feedback)`` returns ``(lm_out,
@@ -237,23 +254,34 @@ def _phased_lm(solve, data_args, init_sol, schedule, layer):
     independent, so the result does not depend on which lanes share a
     phase. Returns (lm_out, solution_leaf_tuple).
 
+    ``pad``: run each later phase at ``_padded_lanes`` lanes, the padding
+    copies of its first lane, and drop the copies before the merge. The
+    count of unconverged lanes changes from call to call; a padded count
+    repeats, so a graphed solve (``optim/lm_graphs``) replays its graphs
+    there too. A copy converges exactly when its original does, so the
+    padding never lengthens the phase.
+
     ``layer`` ("schur" or "dense") names each phase's span
     (``<layer>.phase``) and the counters of lanes in the first phase
-    (``<layer>.lanes``) and sent to a later one (``<layer>.rephased_lanes``)."""
-    profiling.count(f"{layer}.lanes", init_sol[0].shape[0])
+    (``<layer>.lanes``) and sent to a later one (``<layer>.rephased_lanes``,
+    padding not counted)."""
+    full = init_sol[0].shape[0]
+    profiling.count(f"{layer}.lanes", full)
     with profiling.span(f"{layer}.phase"):
         out = solve(schedule[0], *data_args, *init_sol)
     lm_m, sol_m = out[0], tuple(out[1:-2])
     for iters in schedule[1:]:
         with profiling.sync("phase_split"):
             idx = torch.nonzero(~lm_m.success).squeeze(-1)
-        if idx.numel() == 0:
+        n = idx.numel()
+        if n == 0:
             break
-        profiling.count(f"{layer}.rephased_lanes", idx.numel())
-        fb = tuple(s[idx] for s in sol_m[: len(init_sol)])
+        profiling.count(f"{layer}.rephased_lanes", n)
+        lanes = torch.cat([idx, idx[:1].expand(_padded_lanes(n, full) - n)]) if pad else idx
+        fb = tuple(s[lanes] for s in sol_m[: len(init_sol)])
         with profiling.span(f"{layer}.phase"):
-            out_b = solve(iters, *(None if d is None else d[idx] for d in data_args), *fb)
-        lm_m, sol_m = _merge_phase(lm_m, sol_m, out_b, idx)
+            out_b = solve(iters, *(None if d is None else d[lanes] for d in data_args), *fb)
+        lm_m, sol_m = _merge_phase(lm_m, sol_m, _trim(out_b, n) if pad else out_b, idx)
     return lm_m, sol_m
 
 
@@ -290,6 +318,7 @@ def _refine(obj, uv, mask, view_valid, init_intr, init_poses, opts, two_phase, m
     lm_m, (intr_m, poses_m, err_m) = _phased_lm(
         _phased_solve(opts, model, precision), (obj, uv, mask, view_valid), (init_intr, init_poses),
         _phase_budget(opts.core.max_iterations, (_intrinsics_phase_cap(model, opts),)), "schur",
+        pad=schur_graphed(model, obj.device),
     )
     b, v = obj.shape[0], obj.shape[1]
     if opts.core.compute_covariance:

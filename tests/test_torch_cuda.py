@@ -16,7 +16,10 @@ against the CPU; a mesh of two shards on one card against the unsharded
 call (and K1 launched once per shard), and the "mixed" precision's float32
 phase on the card; the dense LM's CUDA graphs against its eager
 solves (bundle_batch in one phase and two, handeye_batch, lm_cost_trace)
-and the solves that stay eager.
+and the solves that stay eager; the Schur LM's CUDA graphs against its
+eager solves (the intrinsics facade with its padded second phase,
+"mixed_jac", the stereo rig), the Scheimpflug solve that stays eager, a
+planted capture failure, and ``spd_inverse`` inside a CUDA graph.
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -38,7 +41,7 @@ from calibration_tpu_torch.apps import intrinsic_extrinsic_pipeline, linescan_ca
 from calibration_tpu_torch.models import distortion, pinhole
 from calibration_tpu_torch.models.registry import SCHEIMPFLUG
 from calibration_tpu_torch.ops import projection_residuals as pr
-from calibration_tpu_torch.ops import intrinsics_linear, ransac, se3
+from calibration_tpu_torch.ops import intrinsics_linear, linalg, ransac, se3
 from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
 from calibration_tpu_torch.optim import intrinsics as toi
 from calibration_tpu_torch.optim import blocks
@@ -640,22 +643,22 @@ def test_k1_launches_fall_inside_k1_rms_spans(cuda_device, tmp_path):
         assert any(a - 50.0 <= start and end <= b + 50.0 for a, b in spans), (start, end, spans)
 
 
-def _graph_counts():
+def _graph_counts(prefix="dense"):
     c = profiling.counters()
-    return {k: c.get(f"dense.graph.{k}", 0) for k in ("captures", "replays", "eager")}
+    return {k: c.get(f"{prefix}.graph.{k}", 0) for k in ("captures", "replays", "eager")}
 
 
-def _thrice(solve):
+def _thrice(solve, prefix="dense"):
     """``solve()`` three times from empty graph caches: eagerly (a key's
     first sighting), capturing (its second), replaying; returns the three
-    outputs and the graph counters' steps of each call."""
+    outputs and the ``<prefix>.graph`` counters' steps of each call."""
     lm_graphs.clear()
     outs, steps = [], []
     for _ in range(3):
-        before = _graph_counts()
+        before = _graph_counts(prefix)
         outs.append(solve())
         torch.cuda.synchronize()
-        after = _graph_counts()
+        after = _graph_counts(prefix)
         steps.append({k: after[k] - before[k] for k in after})
     return outs, steps
 
@@ -795,3 +798,120 @@ def test_a_segment_that_cannot_be_captured_runs_eagerly_from_then_on(cuda_device
     for _ in range(2):
         bundle_batch(*args, opts=opts, two_phase=False)
     assert _graph_counts()["captures"] - before["captures"] == 3
+
+
+def test_spd_inverse_captures_in_a_cuda_graph(cuda_device):
+    """``spd_inverse`` (two cuBLAS triangular solves, no MAGMA) captured in
+    a CUDA graph and replayed on new input: the eager result, and the CPU's
+    ``cholesky_solve`` to 1e-12; a lane that is not SPD comes back NaN."""
+    rng = np.random.default_rng(5)
+
+    def batch():
+        m = torch.as_tensor(rng.normal(size=(64, 10, 6, 6)), device=cuda_device)
+        a = m @ m.mT + 6.0 * torch.eye(6, dtype=torch.float64, device=cuda_device)
+        a[0, 0] = -a[0, 0]
+        return a
+
+    static = batch()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        linalg.spd_inverse(static)  # the libraries' handles, outside the capture
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = linalg.spd_inverse(static)
+    fresh = batch()
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0, 0]).all() and torch.isfinite(out[1:]).all() and torch.isfinite(out[0, 1:]).all()
+    eager = linalg.spd_inverse(fresh)
+    assert torch.equal(torch.nan_to_num(out, nan=7.0), torch.nan_to_num(eager, nan=7.0))
+    a = fresh.cpu()
+    want = torch.cholesky_solve(torch.eye(6, dtype=a.dtype).expand(a.shape), linalg.cholesky(a))
+    assert float((out.cpu()[1:] - want[1:]).abs().max()) <= 1e-12 * float(want[1:].abs().max())
+
+
+def test_graphed_intrinsics_facade_equals_eager(cuda_device):
+    """The benchmark's path at 64 sensors: the phased Schur solve, its
+    second phase padded (``batched._padded_lanes``), then the covariance. Graphed, the
+    eager trajectory (equal counters; cost, x and covariance to 1e-12),
+    both phases' keys captured on the second call and replayed from
+    then on; the padding is not counted as rephased."""
+    obj, uv, _ = chip_smoke.make_problems(64)
+    obj, uv = torch.as_tensor(obj, device=cuda_device), torch.as_tensor(uv, device=cuda_device)
+    rephased = profiling.counters().get("schur.rephased_lanes", 0)
+    outs, steps = _thrice(lambda: intrinsics_facade_batch(obj, uv, opts=chip_smoke.FACADE_OPTS, two_phase=True),
+                          prefix="schur")
+    moved = profiling.counters().get("schur.rephased_lanes", 0) - rephased
+    eager = outs[0][2]
+    assert moved > 0 and moved == 3 * int((eager[0].iterations > batched.TWO_PHASE_CAP_A).sum())
+    assert bool(eager[0].success.all())
+    for graphed in outs[1:]:
+        _same_trajectory(graphed[2][0], eager[0])
+        scale = eager[4].abs().amax(dim=(-2, -1))
+        assert bool(((graphed[2][4] - eager[4]).abs().amax(dim=(-2, -1)) <= 1e-12 * scale).all())
+        assert torch.equal(graphed[2][5], eager[5])
+    _captured_then_replayed(steps, keys=2)
+
+
+def test_graphed_mixed_jac_intrinsics_equal_eager(cuda_device):
+    """"mixed_jac": a float32-Jacobian Schur solve, then the float64
+    polish, two keys, each graphed."""
+    obj, uv, _ = chip_smoke.make_problems(16)
+    obj, uv = torch.as_tensor(obj, device=cuda_device), torch.as_tensor(uv, device=cuda_device)
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, compute_covariance=False))
+    outs, steps = _thrice(lambda: intrinsics_batch(obj, uv, opts=opts, precision="mixed_jac", two_phase=False)[1],
+                          prefix="schur")
+    assert bool(outs[0][0].success.all())
+    for graphed in outs[1:]:
+        _same_trajectory(graphed[0], outs[0][0])
+    _captured_then_replayed(steps, keys=2)
+
+
+def test_graphed_stereo_extrinsics_equal_eager(cuda_device):
+    """The stereo rig's Schur solve (analytic pinhole Jacobian, camera
+    quaternions in the global block, two loss blocks a view), one phase
+    with covariance: graphed, the eager trajectory and covariance."""
+    p = chip_smoke.stereo_problems(8)
+    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=50, compute_covariance=True))
+    args = [torch.as_tensor(p[k], device=cuda_device) for k in ("obj", "uv", "intr0", "c0", "r0")]
+    outs, steps = _thrice(lambda: extrinsics_batch(*args, opts=opts), prefix="schur")
+    assert bool(outs[0][0].success.all()) and bool(outs[0][5].all())
+    for graphed in outs[1:]:
+        _same_trajectory(graphed[0], outs[0][0])
+        scale = outs[0][4].abs().amax(dim=(-2, -1))
+        assert bool(((graphed[4] - outs[0][4]).abs().amax(dim=(-2, -1)) <= 1e-12 * scale).all())
+    _captured_then_replayed(steps, keys=1)
+
+
+def test_forward_mode_schur_solve_runs_eagerly(cuda_device):
+    """Scheimpflug's forward-mode Jacobian keeps host state: every segment
+    of every call runs eagerly (``schur.graph.eager`` alone), with the
+    same result each time."""
+    o, u, _ = chip_smoke.scheimpflug_problems(4, (0.05, -0.03))
+    o, u = torch.as_tensor(o, device=cuda_device), torch.as_tensor(u, device=cuda_device)
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=30), fixed_distortion_indices=(2, 3))
+    outs, steps = _thrice(lambda: intrinsics_batch(o, u, opts=opts, model_name=chip_smoke.SCHEIM_NAME,
+                                                   two_phase=False)[1], prefix="schur")
+    assert all(s["captures"] == s["replays"] == 0 and s["eager"] > 0 for s in steps)
+    for out in outs[1:]:
+        _same_trajectory(out[0], outs[0][0])
+
+
+def test_a_failed_schur_capture_falls_back_to_eager(cuda_device, monkeypatch):
+    """A capture that fails (planted): the key runs eagerly from then on,
+    with the eager result."""
+    def fail(*args, **kwargs):
+        raise RuntimeError("planted capture failure")
+
+    monkeypatch.setattr(lm_graphs._Entry, "capture", fail)
+    obj, uv, _ = chip_smoke.make_problems(16)
+    obj, uv = torch.as_tensor(obj, device=cuda_device), torch.as_tensor(uv, device=cuda_device)
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, compute_covariance=False))
+    outs, steps = _thrice(lambda: intrinsics_batch(obj, uv, opts=opts, two_phase=False)[1], prefix="schur")
+    assert all(s["captures"] == s["replays"] == 0 and s["eager"] > 0 for s in steps)
+    assert steps[1]["eager"] == steps[2]["eager"] == steps[0]["eager"]
+    for out in outs[1:]:
+        _same_trajectory(out[0], outs[0][0])

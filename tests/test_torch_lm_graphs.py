@@ -1,11 +1,16 @@
-"""The dense LM's CUDA-graph bookkeeping on the CPU (``optim/lm_graphs``):
-the key rule, the per-device LRU of keys, that CPU solves never reach the
-graph path, and that the segments a graph would capture make no host read
-and no host-to-device copy (either would fail a capture on the card).
+"""The LMs' CUDA-graph bookkeeping on the CPU (``optim/lm_graphs``): the
+key rule (partials, dtypes, forward-mode Jacobians marked eager), the
+per-device LRU of keys, that CPU solves never reach the graph path, that
+the segments a graph would capture make no host read and no host-to-device
+copy (either would fail a capture on the card), for the dense and the
+Schur LM; ``spd_inverse``'s triangular solves against ``cholesky_solve``;
+and the phased solve's padded later phase against the unpadded one.
 
 The captures and replays themselves run only on a card:
 tests/test_torch_cuda.py holds the graphed solves against the eager ones.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -14,10 +19,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke
 from calibration_tpu_torch.models.registry import PINHOLE, SCHEIMPFLUG
-from calibration_tpu_torch.optim import BundleOptions, OptimOptions
+from calibration_tpu_torch.ops import linalg
+from calibration_tpu_torch.optim import BundleOptions, ExtrinsicOptions, IntrinsicsOptimOptions, OptimOptions
+from calibration_tpu_torch.optim import intrinsics as toi
 from calibration_tpu_torch.optim import lm, lm_graphs
 from calibration_tpu_torch.optim.manifold import ProductManifold, euclid
-from calibration_tpu_torch.parallel import bundle_batch, handeye_batch
+from calibration_tpu_torch.parallel import batched, bundle_batch, extrinsics_batch, handeye_batch, intrinsics_batch
 from calibration_tpu_torch.utils import profiling
 
 CUDA0 = torch.device("cuda", 0)
@@ -71,6 +78,37 @@ def test_a_closed_over_tensor_or_mutable_value_gives_no_key(value):
 
     assert _key(res, jac) is None
     assert lm_graphs.key((1, 2.0), (torch.ones(2), "not a tensor")) is None
+
+
+def _scaled(x, *d, scale=1.0, model=PINHOLE):
+    return x * scale + model.param_count
+
+
+def test_partials_and_dtypes_are_keyed_by_value():
+    """A partial by its function, arguments and keywords; a dtype by its
+    name: equal values one key, other values another."""
+    first = lm_graphs.key((functools.partial(_scaled, scale=2.0), torch.float32), ())
+    assert first is not None and first == lm_graphs.key((functools.partial(_scaled, scale=2.0), torch.float32), ())
+    assert lm_graphs.key((functools.partial(_scaled, scale=3.0), torch.float32), ()) != first
+    assert lm_graphs.key((functools.partial(_scaled, scale=2.0, model=SCHEIMPFLUG), torch.float32), ()) != first
+    assert lm_graphs.key((functools.partial(_scaled, 1.0, scale=2.0), torch.float32), ()) != first
+    assert lm_graphs.key((functools.partial(_scaled, scale=2.0), torch.float64), ()) != first
+    assert lm_graphs.key((functools.partial(_scaled, scale=torch.ones(1)),), ()) is None
+
+
+def test_a_function_marked_eager_gives_no_key_wherever_it_sits():
+    def jac(x, *d):
+        return x
+
+    assert lm_graphs.key((jac,), ()) is not None
+    lm_graphs.eager(jac)
+    assert lm_graphs.key((jac,), ()) is None
+    assert lm_graphs.key((functools.partial(jac, 1.0),), ()) is None
+
+    def outer(x):
+        return jac(x)
+
+    assert lm_graphs.key((outer,), ()) is None
 
 
 def _keys_of(monkeypatch, fn):
@@ -230,3 +268,135 @@ def test_step_outputs_are_owned_across_steps():
         assert torch.equal(a, b)
     assert costs.shape == (3, 6) and torch.equal(costs[:, -1], out.cost)
     assert bool((costs[:, :-1] >= costs[:, 1:]).all())
+
+
+# the Schur LM's solves (``lm_core_schur``): intrinsics through the
+# pinhole model's analytic Jacobian, in f64 and in "mixed_jac" (a float32
+# Jacobian, then the float64 polish), and the stereo rig's extrinsics
+_INTR_OPTS = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, compute_covariance=False))
+_STEREO_KEYS = ("obj", "uv", "intr0", "c0", "r0")
+
+
+def _intrinsics_solve(precision="f64", model=PINHOLE.name):
+    if model == PINHOLE.name:
+        obj, uv, _ = chip_smoke.make_problems(4, views=4, rows=5, cols=6)
+    else:
+        obj, uv, _ = chip_smoke.scheimpflug_problems(4, (0.05, -0.03), views=4, rows=5, cols=6)
+    return intrinsics_batch(torch.as_tensor(obj), torch.as_tensor(uv), opts=_INTR_OPTS, precision=precision,
+                            model_name=model, two_phase=False)
+
+
+def _stereo_solve(model=PINHOLE.name):
+    p = chip_smoke.stereo_problems(3, views=4, tilt_tau=None if model == PINHOLE.name else chip_smoke.SOLVER_TILT)
+    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=30, compute_covariance=False))
+    return extrinsics_batch(*(torch.as_tensor(p[k]) for k in _STEREO_KEYS), opts=opts, model_name=model,
+                            two_phase=False)
+
+
+SCHUR_SOLVES = {
+    "intrinsics": _intrinsics_solve,
+    "intrinsics_mixed_jac": lambda: _intrinsics_solve("mixed_jac"),
+    "stereo": _stereo_solve,
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCHUR_SOLVES))
+def test_schur_solves_are_keyed_alike_from_call_to_call(monkeypatch, name):
+    """The residual partials over the model spec and the stereo lambdas
+    over pc, c and the spec meet the key rule: every solve has a key, and
+    the next call on the same shapes asks for the same ones."""
+    both = _keys_of(monkeypatch, lambda: (SCHUR_SOLVES[name](), SCHUR_SOLVES[name]()))
+    keys, again = both[: len(both) // 2], both[len(both) // 2 :]
+    assert keys and None not in keys and keys == again
+    assert len(set(keys)) == (2 if name.endswith("mixed_jac") else 1)  # the float32 phase, then the polish
+
+
+@pytest.mark.parametrize("name", ["intrinsics_scheimpflug", "stereo_scheimpflug_grouped",
+                                  "stereo_scheimpflug_full"])
+def test_forward_mode_schur_solves_get_no_key(monkeypatch, name):
+    """Scheimpflug has no analytic Jacobian: its forward-mode Jacobians
+    (``view_jacobian_fn``, the stereo rig's grouped one) keep host state
+    and run eagerly."""
+    if name == "stereo_scheimpflug_full":  # extrinsics_batch runs the grouped one
+        real = batched.optimize_extrinsics_device
+        monkeypatch.setattr(batched, "optimize_extrinsics_device",
+                            lambda *a, **kw: real(*a, **kw, jac_mode="full"))
+    if name == "intrinsics_scheimpflug":
+        keys = _keys_of(monkeypatch, lambda: _intrinsics_solve(model=SCHEIMPFLUG.name))
+    else:
+        keys = _keys_of(monkeypatch, lambda: _stereo_solve(SCHEIMPFLUG.name))
+    assert keys and set(keys) == {None}
+    assert not toi.schur_graphed(SCHEIMPFLUG, CUDA0) and toi.schur_graphed(PINHOLE, CUDA0)
+    assert not toi.schur_graphed(PINHOLE, "cpu")
+
+
+@pytest.mark.parametrize("name", sorted(SCHUR_SOLVES))
+def test_cpu_schur_solves_never_touch_the_graph_path(name):
+    before = profiling.counters()
+    SCHUR_SOLVES[name]()
+    SCHUR_SOLVES[name]()
+    after = profiling.counters()
+    for counter in ("schur.graph.captures", "schur.graph.replays", "schur.graph.eager"):
+        assert after.get(counter, 0) == before.get(counter, 0) == 0
+    assert not lm_graphs._caches
+
+
+@pytest.mark.parametrize("name", sorted(SCHUR_SOLVES))
+def test_graphed_schur_segments_make_no_host_read_or_copy(monkeypatch, name):
+    watch = _segments_watched(monkeypatch)
+    SCHUR_SOLVES[name]()
+    assert watch.seen == []
+
+
+def _spd_batch(shape, seed=3):
+    rng = np.random.default_rng(seed)
+    m = torch.as_tensor(rng.normal(size=shape))
+    a = m @ m.mT + shape[-1] * torch.eye(shape[-1], dtype=torch.float64)
+    a[0] = -a[0]  # not SPD
+    return a
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 6), (4, 5, 6, 6), (3, 10, 10), (2, 1, 1)])
+def test_spd_inverse_is_cholesky_solve_bit_for_bit(shape):
+    """Two triangular solves against I (capturable on CUDA), equal to a
+    batched ``cholesky_solve`` on the CPU to the last bit; a lane that is
+    not SPD comes back NaN and nothing raises."""
+    a = _spd_batch(shape)
+    low = linalg.cholesky(a)
+    eye = torch.eye(shape[-1], dtype=a.dtype).expand(a.shape)
+    want = torch.cholesky_solve(eye, low)
+    got = linalg.spd_inverse(a)
+    assert torch.isnan(got[0]).all() and torch.isfinite(got[1:]).all()
+    assert torch.equal(got[1:], want[1:])
+    b = torch.as_tensor(np.random.default_rng(4).normal(size=shape[:-1]))
+    assert torch.equal(linalg.spd_solve(a, b)[1:], torch.cholesky_solve(b[..., None], low)[1:, ..., 0])
+
+
+@pytest.mark.parametrize("n, full, lanes", [(1, 256, 16), (16, 256, 16), (17, 256, 32), (41, 256, 64),
+                                            (46, 256, 64), (129, 256, 256), (200, 256, 256), (10, 12, 12),
+                                            (5, 24, 16), (20, 24, 24)])
+def test_padded_lane_counts_are_powers_of_two_from_16_capped_at_the_batch(n, full, lanes):
+    assert batched._padded_lanes(n, full) == lanes
+
+
+@pytest.mark.parametrize("b", [24, 40])
+def test_a_padded_phase_b_gives_the_unpadded_result_lane_for_lane(monkeypatch, b):
+    """The phased Schur intrinsics solve with its second phase padded (as
+    on CUDA with the analytic Jacobian) and unpadded: every output equal
+    to the last bit, and the same lanes counted as rephased (the padding
+    is not counted)."""
+    obj, uv, _ = chip_smoke.make_problems(b, views=6, rows=6, cols=7)
+    obj, uv = torch.as_tensor(obj), torch.as_tensor(uv)
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, epsilon=1e-9, compute_covariance=False))
+    outs, rephased = [], []
+    for pad in (False, True):
+        monkeypatch.setattr(batched, "schur_graphed", lambda model, device, pad=pad: pad)
+        before = profiling.counters().get("schur.rephased_lanes", 0)
+        outs.append(intrinsics_batch(obj, uv, opts=opts, two_phase=True)[1])
+        rephased.append(profiling.counters().get("schur.rephased_lanes", 0) - before)
+    plain, padded = outs
+    assert rephased[0] == rephased[1] == int((plain[0].iterations > batched.TWO_PHASE_CAP_A).sum()) > 0
+    for want, got in zip(plain[0], padded[0]):
+        assert torch.equal(got, want)
+    for want, got in zip(plain[1:], padded[1:]):
+        assert torch.equal(got, want)
