@@ -1,5 +1,6 @@
 """The dense Levenberg-Marquardt engine ``lm_core``, its ``covariance``, and
-the pieces the Schur engine shares (port of ``calibration_tpu/optim/lm.py``).
+the LM's control, which the Schur engine runs too (port of
+``calibration_tpu/optim/lm.py``).
 
 ``lm_core`` minimizes 0.5 * sum rho(|r_b|^2) over a product manifold for a
 batch of B independent problems: tangent-space Jacobians (a caller's
@@ -16,6 +17,12 @@ batch with per-lane masks: a finished lane keeps every field, its counters
 included; the linearization is cached across rejected trials (a rejected
 trial re-solves the cached system with a larger mu); the host reads one
 flag per trial to decide whether any lane is still active.
+
+Both engines run one control, written here: the Huber block weights, the
+Jacobi scaling, the Nielsen trial update with its termination codes, and
+the host's loop of linearizations and damping retries (``_lm_step``,
+``_lm_run``). They differ in their normal equations, their damped solve,
+their retraction and the layout of their state.
 """
 
 from __future__ import annotations
@@ -83,10 +90,21 @@ def _loss_blocks(m: int, block_ids, num_blocks: int, device):
     return None, torch.as_tensor(ids, dtype=torch.long, device=device)
 
 
+def _huber_blocks(s, huber_delta: float):
+    """Huber IRLS weights (B, n) and robust cost (B,) of per-block squared
+    norms s = |r_b|^2 (B, n): weight 1 inside the delta ball and
+    delta/|r_b| outside; cost 0.5 * sum rho(|r_b|^2)."""
+    d2 = huber_delta * huber_delta
+    out = s > d2
+    sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
+    wb = torch.where(out, huber_delta / sqrt_s, torch.ones_like(s))
+    rho = torch.where(out, 2.0 * huber_delta * sqrt_s - d2, s)
+    return wb, 0.5 * torch.sum(rho, dim=-1)
+
+
 def _robust_weights(r, blocks, num_blocks: int, huber_delta: float):
     """Huber IRLS row weights (B, m) and robust cost (B,) of residuals
-    r (B, m): per block, weight 1 inside the delta ball and delta/|r_b|
-    outside; cost 0.5 * sum rho(|r_b|^2)."""
+    r (B, m), per loss block (``_huber_blocks``)."""
     run, ids = blocks
     b, m = r.shape
     run = run or m  # no block_ids: one block of all rows
@@ -94,13 +112,120 @@ def _robust_weights(r, blocks, num_blocks: int, huber_delta: float):
         s = torch.sum((r * r).reshape(b, m // run, run), dim=-1)
     else:
         s = torch.zeros((b, num_blocks), dtype=r.dtype, device=r.device).index_add_(1, ids, r * r)
-    d2 = huber_delta * huber_delta
-    out = s > d2
-    sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
-    wb = torch.where(out, huber_delta / sqrt_s, torch.ones_like(s))
-    rho = torch.where(out, 2.0 * huber_delta * sqrt_s - d2, s)
-    w = wb.repeat_interleave(run, dim=-1) if ids is None else wb[:, ids]
-    return w, 0.5 * torch.sum(rho, dim=-1)
+    wb, cost = _huber_blocks(s, huber_delta)
+    return (wb.repeat_interleave(run, dim=-1) if ids is None else wb[:, ids]), cost
+
+
+def _jacobi(a, free):
+    """(diag, d) of normal matrices a (..., n, n) under a free mask
+    (..., n): the diagonal clamped to [1e-12, 1e32], 1 on frozen dims, and
+    the Jacobi scale d = diag^-1/2, 0 on frozen dims."""
+    diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * free + (1.0 - free)
+    return diag, torch.where(free > 0, 1.0 / torch.sqrt(diag), 0.0)
+
+
+def _sel(mask, a, b):
+    """``a`` where the lane mask (B,) holds, else ``b``."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def _first_state(b: int, dtype, device) -> tuple:
+    """(mu, nu, it, done, termination, lin) of a solve's first state."""
+    it = torch.zeros((b,), dtype=torch.int64, device=device)
+    return (torch.full((b,), _MU_INIT, dtype=dtype, device=device), torch.full((b,), 2.0, dtype=dtype, device=device),
+            it, torch.zeros((b,), dtype=torch.bool, device=device), torch.zeros_like(it), torch.zeros_like(it))
+
+
+def _first_trial(done, it, max_it: int) -> tuple:
+    """(outer, accepted, t_term, active, go) of a linearization: the lanes
+    in the outer loop, and the control fields of its first trial's carry."""
+    outer = ~done & (it < max_it)
+    accepted = torch.zeros_like(done)
+    t_term = torch.zeros_like(it)
+    active = outer & ~accepted & (t_term == 0) & (it < max_it)
+    return outer, accepted, t_term, active, active.any()
+
+
+def _nielsen(options: OptimOptions, cost, cost_new, pred, delta_ok, xtol_hit, gtol_hit, outer,
+             mu, nu, it, accepted, t_term, active) -> tuple:
+    """One trial's acceptance and Nielsen update, per lane: the trial is
+    accepted where it is finite and lowers the cost by a positive share
+    ``rho`` of the predicted decrease ``pred``; mu shrinks by Nielsen's
+    factor on acceptance and grows by nu on rejection; termination codes
+    gtol (2) before xtol (3) before ftol (1). Lanes outside ``active`` keep
+    every field. Returns (accept, mu, nu, it, accepted, t_term, the next
+    trial's active lanes, whether there are any)."""
+    eps, max_it = options.epsilon, options.max_iterations
+    rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
+    accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
+    ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+
+    factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    mu_acc = torch.clamp(mu * factor, _MU_MIN, _MU_MAX)
+    mu_rej = torch.clamp(mu * nu, _MU_MIN, _MU_MAX)
+    term = torch.where(
+        gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
+    ).to(t_term.dtype)
+
+    mu = torch.where(active, torch.where(accept, mu_acc, mu_rej), mu)
+    nu = torch.where(active, torch.where(accept, 2.0, nu * 2.0), nu)
+    it = torch.where(active, it + 1, it)
+    accepted = accepted | accept
+    t_term = torch.where(active, term, t_term)
+    active = outer & ~accepted & (t_term == 0) & (it < max_it)
+    return accept, mu, nu, it, accepted, t_term, active, active.any()
+
+
+def _lm_step(seg, prefix: str, linearize_segment: Callable, trial_segment: Callable, n_cache: int,
+             kept: tuple, done, termination, lin, gated: tuple = ()) -> tuple:
+    """One LINEARIZATION of either engine and its damping-retry loop, for
+    the lanes in the outer loop; every other lane keeps every field.
+
+    ``kept`` is what the trials carry: the engine's iterate and the
+    fields it keeps with it, then (cost, mu, nu, it).
+    ``linearize_segment(k, *kept, done)`` returns (*gated, *cache,
+    *kept, accepted, t_term, active, go): per-linearization fields, the
+    trials' cache of ``n_cache`` tensors (``outer`` last) and the first
+    trial's carry (``_first_trial``); ``trial_segment(k, *cache,
+    *carry)`` returns the next carry (``_nielsen``). The host reads one
+    flag per trial. Returns (kept, done, termination, lin, gated), the
+    ``gated`` fields taken from this linearization where the lane was in
+    the outer loop.
+    """
+    ng = len(gated)
+    with seg.held():
+        with profiling.span(prefix + ".linearize"):
+            out = seg.run("linearize", linearize_segment, *kept, done)
+        new_gated, cache, carry = out[:ng], out[ng:ng + n_cache], out[ng + n_cache:]
+        # inner damping-retry loop on the cached linearization
+        while True:
+            with profiling.sync(prefix + ".trial"):
+                go = bool(carry[-1])
+            if not go:
+                break
+            with profiling.span(prefix + ".trial"):
+                carry = seg.run("trial", trial_segment, *cache, *carry, update_from=n_cache)
+        outer, t_term = cache[-1], carry[-3]
+        # lanes outside the outer loop never went active: their carry is
+        # their own state, so only the per-linearization fields need gating
+        return (
+            tuple(seg.own(t) for t in carry[:-4]),
+            torch.where(outer, t_term > 0, done),
+            torch.where(outer, t_term, termination),
+            lin + outer.to(lin.dtype),
+            tuple(torch.where(outer, g, old) for g, old in zip(new_gated, gated)),
+        )
+
+
+def _lm_run(prefix: str, state, step: Callable, cond: Callable):
+    """``step`` from ``state`` while any lane of ``cond(state)`` holds: the
+    host reads one flag per linearization. Returns the last state."""
+    while True:
+        with profiling.sync(prefix + ".outer"):
+            go = bool(cond(state).any())
+        if not go:
+            return state
+        state = step(state)
 
 
 def tangent_jacobian(residual_fn: Callable, manifold: ProductManifold, x, data=(), lower=None, upper=None):
@@ -154,17 +279,6 @@ def dual_jacobian_fn(residual_fn: Callable, manifold: ProductManifold, lower=Non
         return jac.reshape(t, b, -1).permute(1, 2, 0)
 
     return jac_fn
-
-
-def forward_jacobian_fn(mode: str, residual_fn: Callable, manifold: ProductManifold, lower=None, upper=None):
-    """The ``jac_fn`` of a forward-mode Jacobian by name, for ``lm_core``
-    and ``covariance``: "dual" is ``dual_jacobian_fn``; "vmap" is None,
-    ``lm_core``'s own ``tangent_jacobian``. The two agree to roundoff."""
-    if mode == "dual":
-        return dual_jacobian_fn(residual_fn, manifold, lower, upper)
-    if mode != "vmap":
-        raise ValueError(f"unknown forward-mode Jacobian '{mode}' (dual|vmap)")
-    return None
 
 
 def _tan_free(manifold: ProductManifold, free_mask, b: int, dtype, device):
@@ -269,9 +383,6 @@ def make_lm_step(
             return r * sw, jac * sw[..., None]
         return r, jac
 
-    def sel(mask, a, b_):
-        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
-
     def cond(state: LMState):
         return ~state.done & (state.it < max_it)
 
@@ -283,7 +394,6 @@ def make_lm_step(
         """(grad_max, the trials' cache (x ... outer), the trials' carry
         (t_x ... go))."""
         tan_free, diag_fixed = k[0], k[2]
-        outer = ~done & (it < max_it)
         r_lin, jac = linearize(k, x)
         rw, jw = weighted(k, r_lin, jac)
         jw = jw * tan_free[:, None, :]
@@ -292,20 +402,16 @@ def make_lm_step(
 
         grad_max = g.abs().amax(dim=-1)
         gtol_hit = grad_max <= eps
-        diag = torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1), 1e-12, 1e32) * tan_free + (1.0 - tan_free)
         # Jacobi-scaled damped normal equations: with D = diag(A)^-1/2 the
         # scaled system has unit diagonal, so the damping is mu * I and the
         # Cholesky sees cond(D A D); frozen dims get a unit diagonal so the
         # factorization stays SPD (their delta is zeroed)
-        d = torch.where(tan_free > 0, 1.0 / torch.sqrt(diag), 0.0)
+        diag, d = _jacobi(a, tan_free)
         a_s = d[:, :, None] * a * d[:, None, :] + diag_fixed
         x_norm = torch.linalg.norm(x, dim=-1)
 
-        accepted = torch.zeros_like(done)
-        t_term = torch.zeros_like(it)
-        active = outer & ~accepted & (t_term == 0) & (it < max_it)
-        return (grad_max, x, cost, g, d, a_s, diag, x_norm, gtol_hit, outer,
-                x, cost, mu, nu, it, accepted, t_term, active, active.any())
+        outer, *control = _first_trial(done, it, max_it)
+        return (grad_max, x, cost, g, d, a_s, diag, x_norm, gtol_hit, outer, x, cost, mu, nu, it, *control)
 
     def trial_segment(k, x, cost, g, d, a_s, diag, x_norm, gtol_hit, outer,
                       t_x, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, go):
@@ -315,7 +421,7 @@ def make_lm_step(
         sys = a_s + t_mu[:, None, None] * diag_free
         delta = -d * linalg.spd_solve(sys, d * g) * tan_free
         delta_ok = torch.isfinite(delta).all(dim=-1)
-        delta = sel(delta_ok, delta, torch.zeros_like(delta))
+        delta = _sel(delta_ok, delta, torch.zeros_like(delta))
 
         step_norm = torch.linalg.norm(delta, dim=-1)
         xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
@@ -323,69 +429,23 @@ def make_lm_step(
         x_new = clip_x(k, manifold.retract(x, delta))
         cost_new = cost_of(k, residuals(k, x_new))
         pred = 0.5 * torch.sum(delta * (t_mu[:, None] * diag * delta - g), dim=-1)
-        rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-        accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-        ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
-
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-        mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-        term = torch.where(
-            gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-        ).to(t_term.dtype)
-
-        t_x = sel(accept, x_new, t_x)
-        t_cost = sel(accept, cost_new, t_cost)
-        t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-        t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-        t_it = sel(active, t_it + 1, t_it)
-        accepted = accepted | accept
-        t_term = sel(active, term, t_term)
-        active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-        return t_x, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, active.any()
+        accept, *control = _nielsen(options, cost, cost_new, pred, delta_ok, xtol_hit, gtol_hit, outer,
+                                    t_mu, t_nu, t_it, accepted, t_term, active)
+        return (_sel(accept, x_new, t_x), _sel(accept, cost_new, t_cost), *control)
 
     def step(state: LMState) -> LMState:
-        with seg.held():
-            with profiling.span("dense.linearize"):
-                lin = seg.run(
-                    "linearize", linearize_segment, state.x, state.cost, state.mu, state.nu, state.it, state.done
-                )
-            grad_max, cache, carry = lin[0], lin[1:10], lin[10:]
-            # inner damping-retry loop on the cached linearization
-            while True:
-                with profiling.sync("dense.trial"):
-                    go = bool(carry[-1])
-                if not go:
-                    break
-                with profiling.span("dense.trial"):
-                    carry = seg.run("trial", trial_segment, *cache, *carry, update_from=len(cache))
-            outer = cache[-1]
-            t_x, t_cost, t_mu, t_nu, t_it, _, t_term = carry[:7]
-            # lanes outside the outer loop never went active: their t_* are
-            # their own state, so only the per-linearization fields need gating
-            return LMState(
-                x=seg.own(t_x), mu=seg.own(t_mu), nu=seg.own(t_nu), cost=seg.own(t_cost), it=seg.own(t_it),
-                done=torch.where(outer, t_term > 0, state.done),
-                termination=torch.where(outer, t_term, state.termination),
-                grad_max=torch.where(outer, grad_max, state.grad_max),
-                lin=state.lin + outer.to(state.lin.dtype),
-            )
+        # a cache of 9: x ... outer
+        (x, cost, mu, nu, it), done, termination, lin, (grad_max,) = _lm_step(
+            seg, "dense", linearize_segment, trial_segment, 9, (state.x, state.cost, state.mu, state.nu, state.it),
+            state.done, state.termination, state.lin, (state.grad_max,),
+        )
+        return LMState(x, mu, nu, cost, it, done, termination, grad_max, lin)
 
     with seg.held():
         x_init, cost = (seg.own(t) for t in seg.run("init", init_segment, x0))
-    it = torch.zeros((b,), dtype=torch.int64, device=device)
-    init = LMState(
-        x=x_init,
-        mu=torch.full((b,), _MU_INIT, dtype=dtype, device=device),
-        nu=torch.full((b,), 2.0, dtype=dtype, device=device),
-        cost=cost,
-        it=it,
-        done=torch.zeros((b,), dtype=torch.bool, device=device),
-        termination=torch.zeros_like(it),
-        grad_max=torch.full((b,), torch.inf, dtype=dtype, device=device),
-        lin=torch.zeros_like(it),
-    )
-    return init, step, cond
+    mu, nu, it, done, termination, lin = _first_state(b, dtype, device)
+    grad_max = torch.full((b,), torch.inf, dtype=dtype, device=device)
+    return LMState(x_init, mu, nu, cost, it, done, termination, grad_max, lin), step, cond
 
 
 def lm_output(init: LMState, final: LMState) -> LMOutput:
@@ -441,13 +501,7 @@ def lm_core(
         residual_fn, x0, manifold, data=data, options=options, free_mask=free_mask, block_ids=block_ids,
         num_blocks=num_blocks, lower=lower, upper=upper, jac_fn=jac_fn,
     )
-    state = init
-    while True:
-        with profiling.sync("dense.outer"):
-            go = bool(cond(state).any())
-        if not go:
-            return lm_output(init, state)
-        state = step(state)
+    return lm_output(init, _lm_run("dense", init, step, cond))
 
 
 @profiling.traced("dense.covariance")

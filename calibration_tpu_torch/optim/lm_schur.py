@@ -22,6 +22,9 @@ its ``it`` and ``lin`` counters included, and inner trials advance only the
 lanes still active in the outer loop. The host reads one flag per trial to
 decide whether any lane is still active.
 
+Its control is the dense engine's (``lm``: the Huber block weights, the
+Jacobi scaling, the Nielsen trial update, the host's loop); this module
+holds the block normal equations, the Schur solve and the pose retraction.
 The device work falls in three segments of fixed shapes, as in
 ``lm.make_lm_step``: the initial cost, a linearization, a trial. With an
 analytic ``jac_fn`` on CUDA and a key for the solve (``lm_graphs``, prefix
@@ -41,7 +44,8 @@ from ..ops import linalg, se3
 from ..utils import profiling
 from . import lm_graphs
 from .core import OptimOptions
-from .lm import _MU_INIT, _MU_MAX, _MU_MIN, LMOutput, dual_level
+from .lm import (LMOutput, _first_state, _first_trial, _huber_blocks, _jacobi, _lm_run, _lm_step, _nielsen,
+                 _sel, dual_level)
 
 
 # the trial's cache, the first outputs of a linearization (xg ... outer)
@@ -154,12 +158,8 @@ def _huber(r, huber, blocks_per_view=1):
     s = torch.sum((r * r).reshape(b, v * blocks_per_view, run), dim=-1)  # (B, V * blocks)
     if huber <= 0:
         return torch.ones_like(r), 0.5 * torch.sum(s, dim=-1)
-    d2 = huber * huber
-    out = s > d2
-    sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
-    w = torch.where(out, huber / sqrt_s, torch.ones_like(s))
-    rho = torch.where(out, 2.0 * huber * sqrt_s - d2, s)
-    return w[..., None].expand(b, v * blocks_per_view, run).reshape(r.shape), 0.5 * torch.sum(rho, dim=-1)
+    w, cost = _huber_blocks(s, huber)
+    return w[..., None].expand(b, v * blocks_per_view, run).reshape(r.shape), cost
 
 
 def _global_tangent_dim(xg, g_manifold):
@@ -352,9 +352,6 @@ def lm_core_schur(
     def weights(r):
         return _huber(r, huber, blocks_per_view)
 
-    def sel(mask, a, b_):
-        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b_)
-
     def init_segment(k, xg0, quats0, trans0):
         xg = clip_g(k, xg0)
         r = residuals(k, xg, quats0, trans0)
@@ -365,7 +362,6 @@ def lm_core_schur(
         (xg ... outer) and their carry (t_xg ... go). The Jacobian and its
         grams in gdt, the system in the state's dtype."""
         gmask, vmask6, diag_gfixed, diag_vfixed = k[0], k[1], k[4], k[5]
-        outer = ~done & (it < max_it)
         view_data_j = tuple(d.to(gdt) if d.is_floating_point() else d for d in k[7:])
         jac = jac_fn(xg.to(gdt), quats.to(gdt), trans.to(gdt), *view_data_j)  # (B, V, m, pg + 6)
         w, _ = weights(r)
@@ -383,10 +379,8 @@ def lm_core_schur(
         grad_max = torch.maximum(gu.abs().amax(dim=-1), gv.abs().amax(dim=(-2, -1)))
         gtol_hit = grad_max <= eps
 
-        diag_u = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), 1e-12, 1e32) * gmask + (1.0 - gmask)
-        diag_v = torch.clamp(torch.diagonal(vb, dim1=-2, dim2=-1), 1e-12, 1e32) * vmask6 + (1.0 - vmask6)
-        dg = torch.where(gmask > 0, 1.0 / torch.sqrt(diag_u), 0.0)
-        dv = torch.where(vmask6 > 0, 1.0 / torch.sqrt(diag_v), 0.0)
+        diag_u, dg = _jacobi(u, gmask)
+        diag_v, dv = _jacobi(vb, vmask6)
 
         # Jacobi-scaled damped system; frozen dims get a unit diagonal so
         # every factorization stays SPD (their delta is zeroed afterwards)
@@ -400,11 +394,9 @@ def lm_core_schur(
             torch.sum(xg**2, dim=-1) + torch.sum(quats**2, dim=(-2, -1)) + torch.sum(trans**2, dim=(-2, -1))
         )
 
-        accepted = torch.zeros_like(done)
-        t_term = torch.zeros_like(it)
-        active = outer & ~accepted & (t_term == 0) & (it < max_it)
+        outer, *control = _first_trial(done, it, max_it)
         return (xg, quats, trans, cost, u_s, w_s, v_s, gu_s, gv_s, gu, gv, diag_u, diag_v, dg, dv, gtol_hit, x_norm,
-                outer, xg, quats, trans, r, cost, mu, nu, it, accepted, t_term, active, active.any())
+                outer, xg, quats, trans, r, cost, mu, nu, it, *control)
 
     def trial_segment(k, xg, quats, trans, cost, u_s, w_s, v_s, gu_s, gv_s, gu, gv, diag_u, diag_v, dg, dv,
                       gtol_hit, x_norm, outer,
@@ -425,8 +417,8 @@ def lm_core_schur(
         delta_g = dg * dg_t * gmask
         delta_v = dv * dv_t * vmask6
         delta_ok = torch.isfinite(delta_g).all(dim=-1) & torch.isfinite(delta_v).all(dim=-1).all(dim=-1)
-        delta_g = sel(delta_ok, delta_g, torch.zeros_like(delta_g))
-        delta_v = sel(delta_ok, delta_v, torch.zeros_like(delta_v))
+        delta_g = _sel(delta_ok, delta_g, torch.zeros_like(delta_g))
+        delta_v = _sel(delta_ok, delta_v, torch.zeros_like(delta_v))
 
         step_norm = torch.sqrt(torch.sum(delta_g**2, dim=-1) + torch.sum(delta_v**2, dim=(-2, -1)))
         xtol_hit = delta_ok & (step_norm <= eps * (x_norm + eps))
@@ -440,67 +432,23 @@ def lm_core_schur(
             torch.sum(delta_g * (t_mu[:, None] * diag_u * delta_g - gu), dim=-1)
             + torch.sum(delta_v * (t_mu[:, None, None] * diag_v * delta_v - gv), dim=(-2, -1))
         )
-        rho = (cost - cost_new) / torch.where(pred > 0, pred, 1e-300)
-        accept = active & delta_ok & torch.isfinite(cost_new) & (rho > 0) & (pred > 0)
-        ftol_hit = accept & (torch.abs(cost - cost_new) <= eps * cost)
+        accept, *control = _nielsen(options, cost, cost_new, pred, delta_ok, xtol_hit, gtol_hit, outer,
+                                    t_mu, t_nu, t_it, accepted, t_term, active)
+        return (_sel(accept, xg_new, t_xg), _sel(accept, q_new, t_quats), _sel(accept, tr_new, t_trans),
+                _sel(accept, r_new, t_r), _sel(accept, cost_new, t_cost), *control)
 
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        mu_acc = torch.clamp(t_mu * factor, _MU_MIN, _MU_MAX)
-        mu_rej = torch.clamp(t_mu * t_nu, _MU_MIN, _MU_MAX)
-        term = torch.where(
-            gtol_hit, 2, torch.where(xtol_hit, 3, torch.where(ftol_hit, 1, 0))
-        ).to(t_term.dtype)
+    def step(state):
+        return _lm_step(seg, "schur", linearize_segment, trial_segment, _CACHE_LEN, *state)
 
-        t_xg = sel(accept, xg_new, t_xg)
-        t_quats = sel(accept, q_new, t_quats)
-        t_trans = sel(accept, tr_new, t_trans)
-        t_r = sel(accept, r_new, t_r)
-        t_cost = sel(accept, cost_new, t_cost)
-        t_mu = sel(active, torch.where(accept, mu_acc, mu_rej), t_mu)
-        t_nu = sel(active, torch.where(accept, 2.0, t_nu * 2.0), t_nu)
-        t_it = sel(active, t_it + 1, t_it)
-        accepted = accepted | accept
-        t_term = sel(active, term, t_term)
-        active = outer & ~accepted & (t_term == 0) & (t_it < max_it)
-        return t_xg, t_quats, t_trans, t_r, t_cost, t_mu, t_nu, t_it, accepted, t_term, active, active.any()
+    def cond(state):
+        kept, done = state[:2]
+        return ~done & (kept[-1] < max_it)
 
     with seg.held():
-        xg, r, cost = (seg.own(t) for t in seg.run("init", init_segment, xg0, quats0, trans0))
-    quats, trans = quats0, trans0
-    cost0 = cost
-    mu = torch.full((b,), _MU_INIT, dtype=dtype, device=device)
-    nu = torch.full((b,), 2.0, dtype=dtype, device=device)
-    it = torch.zeros((b,), dtype=torch.int64, device=device)
-    lin = torch.zeros_like(it)
-    termination = torch.zeros_like(it)
-    done = torch.zeros((b,), dtype=torch.bool, device=device)
-
-    while True:
-        outer = ~done & (it < max_it)
-        with profiling.sync("schur.outer"):
-            go = bool(outer.any())
-        if not go:
-            break
-        with seg.held():
-            with profiling.span("schur.linearize"):
-                out = seg.run("linearize", linearize_segment, xg, quats, trans, r, cost, mu, nu, it, done)
-            cache, carry = out[:_CACHE_LEN], out[_CACHE_LEN:]
-            # inner damping-retry loop on the cached linearization
-            while True:
-                with profiling.sync("schur.trial"):
-                    go = bool(carry[-1])
-                if not go:
-                    break
-                with profiling.span("schur.trial"):
-                    carry = seg.run("trial", trial_segment, *cache, *carry, update_from=_CACHE_LEN)
-            # lanes outside the outer loop never went active: their t_* are
-            # their own state, so only the per-linearization fields need gating
-            xg, quats, trans, r, cost, mu, nu, it = (seg.own(t) for t in carry[:8])
-            t_term = carry[9]
-            done = torch.where(outer, t_term > 0, done)
-            termination = torch.where(outer, t_term, termination)
-        lin = lin + outer.to(lin.dtype)
-
+        xg, r, cost0 = (seg.own(t) for t in seg.run("init", init_segment, xg0, quats0, trans0))
+    mu, nu, it, done, termination, lin = _first_state(b, dtype, device)
+    init = ((xg, quats0, trans0, r, cost0, mu, nu, it), done, termination, lin, ())
+    (xg, quats, trans, _, cost, _, _, it), _, termination, lin, _ = _lm_run("schur", init, step, cond)
     return SchurOutput(
         xg=xg,
         quats=quats,

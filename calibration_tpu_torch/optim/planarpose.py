@@ -5,8 +5,8 @@ The pose is a 6-vector (angle-axis + translation, the pose6 packing). Each
 residual evaluation transforms the target points, solves the linear
 distortion system (``models.distortion.fit_distortion_full``) and returns
 its residuals: the distortion never enters the LM state. One Huber block
-per problem; the dense ``lm_core`` solves, with the forward-mode Jacobian
-that ``JACOBIAN`` names.
+per problem; the dense ``lm_core`` solves, with the dual-number Jacobian
+``lm.dual_jacobian_fn``.
 """
 
 from __future__ import annotations
@@ -23,12 +23,6 @@ from .core import OptimOptions, OptimResult, TerminationType, brief_report
 from .manifold import ProductManifold, euclid
 
 _MANIFOLD = ProductManifold([euclid(6)])
-# the forward-mode Jacobian of the VarPro residual (``lm.forward_jacobian_fn``):
-# "dual", one evaluation on dual numbers, beat "vmap", ``vmap(jacfwd)``, on
-# the planar-pose cell (H100 80GB HBM3 at 700 W, medians of 7 interleaved
-# warm calls, tools/profile_torch_cells.py --sweeps varpro: 0.176 vs 0.218
-# s and 0.179 vs 0.213 s in two runs), costs equal to 3e-14
-JACOBIAN = "dual"
 
 
 def _normalized_obs(pose6, obj_xy):
@@ -66,7 +60,11 @@ def optimize_planar_pose_device(
         return _vp_residual(p, obj, uv, k, m, num_radial)
 
     data = (obj_xy, img_uv, kmtx, mask)
-    jac = lm.forward_jacobian_fn(JACOBIAN, res_fn, _MANIFOLD)
+    # the VarPro residual's Jacobian on dual numbers, one evaluation, beat
+    # lm_core's own ``vmap(jacfwd)`` on the planar-pose cell (H100 80GB HBM3
+    # at 700 W, medians of 7 interleaved warm calls: 0.176 vs 0.218 s and
+    # 0.179 vs 0.213 s in two runs), costs equal to 3e-14
+    jac = lm.dual_jacobian_fn(res_fn, _MANIFOLD)
     out = lm.lm_core(res_fn, pose6_0, _MANIFOLD, data=data, options=options, num_blocks=1, jac_fn=jac)
 
     coeffs, res, _ = dist.fit_distortion_full(_normalized_obs(out.x, obj_xy), img_uv, kmtx, num_radial, mask=mask)

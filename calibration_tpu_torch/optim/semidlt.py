@@ -6,7 +6,7 @@ Parameters per camera: [K(5), quat_0..quat_V, t_0..t_V]. The residual is
 the inner linear distortion fit's residual over ALL views at once, so one
 Huber block per camera. The distortion coefficients are recovered after
 the solve by re-running the inner fit. The dense ``lm_core`` solves, with
-the forward-mode Jacobian that ``JACOBIAN`` names.
+its own forward-mode Jacobian.
 """
 
 from __future__ import annotations
@@ -21,14 +21,6 @@ from ..ops import planarpose, se3
 from . import blocks, lm
 from .core import OptimResult, TerminationType, brief_report
 from .intrinsics import IntrinsicsOptimOptions, make_manifold
-
-# the forward-mode Jacobian (``lm.forward_jacobian_fn``): "vmap",
-# ``vmap(jacfwd)``, beat "dual", one evaluation on dual numbers, on the
-# semi-DLT cell once its retraction took each run of quaternions at once
-# (H100 80GB HBM3 at 700 W, 3 interleaved warm calls each,
-# tools/profile_torch_cells.py --sweeps varpro: medians 0.575 vs 0.690 s;
-# before, 1.435 vs 1.319 s), costs equal to 8e-15
-JACOBIAN = "vmap"
 
 
 def _fixed_arrays(opts: IntrinsicsOptimOptions, d: int, *, device=None):
@@ -112,15 +104,17 @@ def optimize_intrinsics_semidlt_device(
         return _vp_fit(x, obj, uv, m, opts.num_radial, fixed_mask, fixed_vals)[3][1]
 
     data = (obj_xy, img_uv, mask)
-    jac = lm.forward_jacobian_fn(JACOBIAN, res_fn, manifold, lower, upper)
+    # no jac_fn: lm_core's own ``vmap(jacfwd)``, which beat
+    # ``lm.dual_jacobian_fn``, one evaluation on dual numbers, on the semi-DLT
+    # cell once its retraction took each run of quaternions at once (H100
+    # 80GB HBM3 at 700 W, 3 interleaved warm calls each: medians 0.575 vs
+    # 0.690 s; before, 1.435 vs 1.319 s), costs equal to 8e-15
     out = lm.lm_core(
         res_fn, x0, manifold, data=data, options=opts.core, free_mask=free, num_blocks=1, lower=lower, upper=upper,
-        jac_fn=jac,
     )
     if opts.core.compute_covariance:
         cov, cov_ok = lm.covariance(
             res_fn, out.x, manifold, data=data, free_mask=free, num_blocks=1, huber_delta=opts.core.huber_delta,
-            jac_fn=jac,
         )
     else:
         n_amb = manifold.ambient_dim

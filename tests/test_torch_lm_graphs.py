@@ -138,12 +138,12 @@ def _problem(b=3):
     return manifold, target, res, jac
 
 
-@pytest.mark.parametrize("mode", ["vmap", "dual"])
-def test_forward_mode_solves_get_no_key(monkeypatch, mode):
+@pytest.mark.parametrize("make_jac", [None, lm.dual_jacobian_fn], ids=["vmap", "dual"])
+def test_forward_mode_solves_get_no_key(monkeypatch, make_jac):
     """jac_fn None (vmap of jacfwd) and the dual-number Jacobian, which
     closes over the manifold: host state, run eagerly."""
     manifold, target, res, _ = _problem()
-    jac = lm.forward_jacobian_fn(mode, res, manifold)
+    jac = None if make_jac is None else make_jac(res, manifold)
     keys = _keys_of(monkeypatch, lambda: lm.lm_core(res, torch.zeros_like(target), manifold, data=(target,),
                                                      jac_fn=jac))
     assert keys == [None]
@@ -273,22 +273,22 @@ def test_step_outputs_are_owned_across_steps():
 # the Schur LM's solves (``lm_core_schur``): intrinsics through the
 # pinhole model's analytic Jacobian, in f64 and in "mixed_jac" (a float32
 # Jacobian, then the float64 polish), and the stereo rig's extrinsics
-_INTR_OPTS = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=40, compute_covariance=False))
 _STEREO_KEYS = ("obj", "uv", "intr0", "c0", "r0")
 
 
-def _intrinsics_solve(precision="f64", model=PINHOLE.name):
+def _intrinsics_solve(precision="f64", model=PINHOLE.name, max_iterations=40):
     if model == PINHOLE.name:
         obj, uv, _ = chip_smoke.make_problems(4, views=4, rows=5, cols=6)
     else:
         obj, uv, _ = chip_smoke.scheimpflug_problems(4, (0.05, -0.03), views=4, rows=5, cols=6)
-    return intrinsics_batch(torch.as_tensor(obj), torch.as_tensor(uv), opts=_INTR_OPTS, precision=precision,
+    opts = IntrinsicsOptimOptions(core=OptimOptions(max_iterations=max_iterations, compute_covariance=False))
+    return intrinsics_batch(torch.as_tensor(obj), torch.as_tensor(uv), opts=opts, precision=precision,
                             model_name=model, two_phase=False)
 
 
-def _stereo_solve(model=PINHOLE.name):
+def _stereo_solve(model=PINHOLE.name, max_iterations=30):
     p = chip_smoke.stereo_problems(3, views=4, tilt_tau=None if model == PINHOLE.name else chip_smoke.SOLVER_TILT)
-    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=30, compute_covariance=False))
+    opts = ExtrinsicOptions(core=OptimOptions(max_iterations=max_iterations, compute_covariance=False))
     return extrinsics_batch(*(torch.as_tensor(p[k]) for k in _STEREO_KEYS), opts=opts, model_name=model,
                             two_phase=False)
 
@@ -316,15 +316,16 @@ def test_schur_solves_are_keyed_alike_from_call_to_call(monkeypatch, name):
 def test_forward_mode_schur_solves_get_no_key(monkeypatch, name):
     """Scheimpflug has no analytic Jacobian: its forward-mode Jacobians
     (``view_jacobian_fn``, the stereo rig's grouped one) keep host state
-    and run eagerly."""
+    and run eagerly. A solve builds its key before its first segment, so
+    one iteration shows it."""
     if name == "stereo_scheimpflug_full":  # extrinsics_batch runs the grouped one
         real = batched.optimize_extrinsics_device
         monkeypatch.setattr(batched, "optimize_extrinsics_device",
                             lambda *a, **kw: real(*a, **kw, jac_mode="full"))
     if name == "intrinsics_scheimpflug":
-        keys = _keys_of(monkeypatch, lambda: _intrinsics_solve(model=SCHEIMPFLUG.name))
+        keys = _keys_of(monkeypatch, lambda: _intrinsics_solve(model=SCHEIMPFLUG.name, max_iterations=1))
     else:
-        keys = _keys_of(monkeypatch, lambda: _stereo_solve(SCHEIMPFLUG.name))
+        keys = _keys_of(monkeypatch, lambda: _stereo_solve(SCHEIMPFLUG.name, max_iterations=1))
     assert keys and set(keys) == {None}
     assert not toi.schur_graphed(SCHEIMPFLUG, CUDA0) and toi.schur_graphed(PINHOLE, CUDA0)
     assert not toi.schur_graphed(PINHOLE, "cpu")

@@ -26,18 +26,14 @@ per-view Jacobian (rows 2S and 2T): ``lm_schur.view_jacobian_fn``, one
 dual-number pass over the batch repeated pg + 6 times, against the port's
 other forward-mode idiom, a ``torch.func.vmap`` over (B, V) of ``jacfwd``
 (``vmap_jacfwd_view_jacobian_fn`` below), interleaved the same way, and
-the A/B of the VarPro Jacobian (planar pose and semi-DLT, each module's
-``JACOBIAN``: one dual-number pass, ``lm.dual_jacobian_fn``, against
-``lm.tangent_jacobian``'s ``vmap(jacfwd)``), and of the manifold
-retraction (semi-DLT and the Scheimpflug stereo cell: runs of one block
-kind retracted together against block by block), and the mesh sweep
-(config 2 at B = 254 through ``intrinsics_facade_batch`` on 4 shards of
-one card: the four shards one after another on one thread, as the port
-runs the shards of one device; a host thread per shard, as it runs the
-shards of distinct devices; the same with the interpreter's switch
-interval at 0.1 ms; and the unsharded single-phase call). Then
-each cell's warm wall times (host clock,
-synchronized); then, after every timed call, one warm call of each cell
+the A/B of the manifold retraction (semi-DLT and the Scheimpflug stereo
+cell: runs of one block kind retracted together against block by block),
+and the mesh sweep (config 2 at B = 254 through ``intrinsics_facade_batch``
+on 4 shards of one card: the four shards one after another on one thread,
+as the port runs the shards of one device; a host thread per shard, as it
+runs the shards of distinct devices; the same with the interpreter's
+switch interval at 0.1 ms; and the unsharded single-phase call). Then each
+cell's warm wall times (host clock, synchronized); then, after every timed call, one warm call of each cell
 under ``torch.profiler`` (device kernel time by name, the device's idle
 share of the profiled wall) and one under cProfile (host functions by
 cumulative time). ``--cells`` and ``--sweeps`` pick some by name
@@ -71,8 +67,7 @@ import chip_smoke  # noqa: E402
 from calibration_tpu_torch.ops import ransac  # noqa: E402
 from calibration_tpu_torch.models.registry import SCHEIMPFLUG  # noqa: E402
 from calibration_tpu_torch.ops import se3  # noqa: E402
-from calibration_tpu_torch.optim import lm_schur, optimize_bundle_device, planarpose  # noqa: E402
-from calibration_tpu_torch.optim import semidlt as semidlt_mod  # noqa: E402
+from calibration_tpu_torch.optim import lm_schur, optimize_bundle_device  # noqa: E402
 from calibration_tpu_torch.optim.manifold import ProductManifold  # noqa: E402
 from calibration_tpu_torch.parallel import batched, bundle_batch, handeye_batch, homography_batch  # noqa: E402
 from calibration_tpu_torch.parallel import intrinsics_batch, intrinsics_facade_batch, linescan_batch  # noqa: E402
@@ -233,29 +228,6 @@ def retract_ab(name, fn, repeats):
     print(f"[profile] {name} retract: max relative cost difference runs vs per-block {rel!r}")
 
 
-def varpro_ab(name, fn, module, repeats):
-    """Warm walls of ``fn`` with ``module.JACOBIAN`` "dual" and "vmap",
-    interleaved A B B A; prints the median per arm and the cost difference
-    between the two results."""
-    modes = ("dual", "vmap")
-    times, costs = {k: [] for k in modes}, {}
-    saved = module.JACOBIAN
-    try:
-        for key in modes:
-            module.JACOBIAN = key
-            costs[key] = fn()[0].cost  # first call
-        for order in range(repeats):
-            for key in (modes if order % 2 == 0 else modes[::-1]):
-                module.JACOBIAN = key
-                times[key].append(synced(fn))
-    finally:
-        module.JACOBIAN = saved
-    rel = float(((costs["dual"] - costs["vmap"]).abs() / costs["dual"].abs().clamp(min=1e-300)).max())
-    for key in modes:
-        print(f"[profile] {name} VarPro jacobian {key}: median {statistics.median(times[key])!r} s, all {times[key]!r}")
-    print(f"[profile] {name} VarPro jacobian: max relative cost difference dual vs vmap {rel!r}")
-
-
 @contextlib.contextmanager
 def thread_per_shard():
     """``batched._on_mesh`` with a host thread per shard, as on a mesh of
@@ -311,7 +283,7 @@ def main() -> int:
     parser.add_argument("--out", default=str(ROOT / "build" / "profile"))
     parser.add_argument("--cells", default="", help="comma-separated cell names (default all)")
     parser.add_argument("--sweeps", default="", help="comma-separated sweeps: homography, bundle, "
-                        "scheimpflug-fixed, scheimpflug-free, jacobian, varpro, retract, mesh (default all)")
+                        "scheimpflug-fixed, scheimpflug-free, jacobian, retract, mesh (default all)")
     args = parser.parse_args()
     picked = lambda arg, name: not arg or name in arg.split(",")  # noqa: E731
     if not torch.cuda.is_available():
@@ -375,9 +347,6 @@ def main() -> int:
     if picked(args.sweeps, "jacobian"):
         for row in ("2S", "2T"):
             jacobian_ab(f"Scheimpflug {row} B={chip_smoke.SCHEIM_RIGS}", scheim[row], args.repeats)
-    if picked(args.sweeps, "varpro"):
-        varpro_ab(f"planar pose B={10 * chip_smoke.PLANAR_CAMERAS}", planar, planarpose, args.repeats)
-        varpro_ab(f"semi-DLT B={chip_smoke.SEMIDLT_CAMERAS}", semidlt, semidlt_mod, max(3, args.repeats // 2))
     if picked(args.sweeps, "retract"):
         retract_ab(f"semi-DLT B={chip_smoke.SEMIDLT_CAMERAS}", semidlt, max(3, args.repeats // 2))
         retract_ab(f"Scheimpflug stereo B={chip_smoke.STEREO_RIGS}", stereo_s, args.repeats)
